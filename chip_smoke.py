@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one NVIDIA H100 and hold its
+CUDA kernel against the plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout: it builds the port's kernels from
+``ray_tpu_torch/csrc/`` with nvcc (into ``ray_tpu_torch/_build/``) and
+imports nothing of JAX or of the JAX package.  Phases, one JSON line
+each:
+
+  1. device   the card's name and power limit, the kernel build.
+  2. kernel   paged_attention at llama3-8b decode shapes against
+              paged_attention_ref: error, and kernel / plain / SDPA time
+              beside the least time the card could take.
+  3. slice    llama3-8b at full width and depth, random bf16 weights
+              from a seed, served by the paged LLMEngine: 16 requests
+              from threads; every request's token count, the kernel's
+              launch count against n_layers x decode steps, the kernel
+              against the plain version on the engine's own pool, and
+              a teacher-forced check of the greedy tokens against the
+              model's dense prefill path.
+  4. kernels  one line listing every kernel of the port.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or outside a checkout, it exits non-zero and prints no result.
+Full results also go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 flop/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# Kernel and plain version both accumulate in fp32 and round the output
+# to bf16 (2^-8 relative); the plain version also rounds the softmax
+# probabilities to bf16 before P.V.  2e-2 is ~5x that rounding.
+ATOL = RTOL = 2e-2
+# teacher-forced check: the greedy token's logit under the dense prefill
+# path must sit within GAP_TOL of that path's best logit (a wrong kernel
+# picks tokens ~4.5 logit std below the best), and at least AGREE of the
+# tokens must be that path's argmax (bf16 rounding may flip near-ties)
+GAP_TOL = 1.0
+AGREE = 0.75
+KERNEL_SOURCE = "ray_tpu_torch/csrc/paged_attention.cu"
+KERNEL_REPLACES = "ray_tpu/ops/paged_attention.py:74"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, arg_sets, reps: int = 10) -> tuple:
+    """(device ms, host ms) per call over ``arg_sets``.
+
+    Host ms: wall time of one synchronised pass, so it holds the host's
+    Python and launch cost.  Device ms: ``reps`` passes timed with CUDA
+    events.  A spin kernel keeps the card busy while the host queues
+    every call, so the events time the calls back to back and not the
+    host's overhead.  Cycling through input copies larger than the 50 MB
+    L2 cache makes every call find its inputs cold, as a decode step
+    finds a layer's pool."""
+    import torch
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) * reps
+    host_ms = host_s * 1e3 / (reps * len(arg_sets))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # spin at least twice the host's queueing time (at up to 2 GHz)
+    torch.cuda._sleep(int(4e9 * host_s) + 1000)
+    start.record()
+    for _ in range(reps):
+        for a in arg_sets:
+            fn(*a)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * len(arg_sets)), host_ms
+
+
+def paged_bound(q, kv_pages, lengths, block_tables) -> dict:
+    """Least time for one paged decode attention call: the K|V bytes of
+    each row's valid positions, q, the output, tables and lengths, each
+    moved once, over HBM bandwidth; against 4*hd flops per (query head,
+    position) over the bf16 tensor rate."""
+    rows, heads, hd = q.shape
+    _, kvh, ps, _ = kv_pages.shape
+    total = int(lengths.sum())
+    esize = kv_pages.element_size()
+    nbytes = (total * kvh * 2 * hd * esize + 2 * q.numel() * esize
+              + block_tables.numel() * 4 + lengths.numel() * 4)
+    pages = int(((lengths + ps - 1) // ps).sum())
+    page_bytes = pages * kvh * ps * 2 * hd * esize
+    flops = 4 * total * heads * hd
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+            "occupied_page_bytes": page_bytes,
+            "occupied_page_bound_ms": page_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def compare(got, want) -> dict:
+    import torch
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.all(err <= ATOL + RTOL * w.abs()))
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float((err / w.abs().clamp_min(1e-3)).max()),
+            "finite": bool(torch.isfinite(g).all()), "within_tol": ok}
+
+
+def coverage(dev, gen) -> list:
+    """The kernel against the plain version at the other shapes it takes
+    (head_dim 64, GQA groups 1 and 8, pages of 16 and 128 positions, and
+    enough rows that the pages are not split), random lengths >= 1."""
+    import torch
+    from ray_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                   paged_attention_ref)
+    out = []
+    for rows, heads, kvh, hd, ps, max_pages in (
+            (5, 12, 12, 64, 16, 8), (3, 32, 4, 128, 128, 4),
+            (64, 8, 1, 64, 32, 6), (40, 32, 8, 128, 64, 16)):
+        num_pages = 1 + rows * max_pages
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        tables = perm.reshape(rows, max_pages).to(torch.int32)
+        lengths = torch.randint(1, max_pages * ps + 1, (rows,),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)
+        q = torch.randn(rows, heads, hd, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        kv = torch.randn(num_pages, kvh, ps, 2 * hd, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        c = compare(paged_attention_cuda(q, kv, tables, lengths),
+                    paged_attention_ref(q, kv, tables, lengths))
+        c["shape"] = [rows, heads, kvh, hd, ps, max_pages]
+        check(c["finite"] and c["within_tol"],
+              f"kernel disagrees with the plain version: {c}")
+        out.append(c)
+    return out
+
+
+def kernel_phase(dev) -> dict:
+    """paged_attention at llama3-8b decode shapes: 8 slots + the scratch
+    row, 32 heads over 8 kv heads, head_dim 128, 64-token pages, 16-page
+    tables (max_seq_len 1024), shuffled pages, lengths at page edges."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                   paged_attention_ref)
+    rows, heads, kvh, hd, ps, max_pages = 9, 32, 8, 128, 64, 16
+    num_pages = 1 + rows * max_pages
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lengths_l = [1, 63, 64, 65, 300, 1024, 511, 129, 700]
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+    tables = torch.zeros(rows, max_pages, dtype=torch.int32, device=dev)
+    used = 0
+    for r, n in enumerate(lengths_l):
+        np_ = -(-n // ps)
+        tables[r, :np_] = perm[used:used + np_].to(torch.int32)
+        used += np_
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+    # 8 pool copies (8 x 38 MB) so timed calls do not hit in L2
+    sets = []
+    for _ in range(8):
+        q = torch.randn(rows, heads, hd, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        kv = torch.randn(num_pages, kvh, ps, 2 * hd, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        sets.append((q, kv, tables, lengths))
+    q, kv = sets[0][:2]
+    got = paged_attention_cuda(q, kv, tables, lengths)
+    torch.cuda.synchronize()
+    res = compare(got, paged_attention_ref(q, kv, tables, lengths))
+    fp32 = paged_attention_ref(q.float(), kv.float(), tables, lengths)
+    res["max_abs_err_vs_fp32"] = float((got.float() - fp32).abs().max())
+
+    span = max_pages * ps
+    mask = (torch.arange(span, device=dev)[None, :] < lengths[:, None]
+            )[:, None, None, :]
+
+    def gathered(q, kv):
+        g = kv[tables.long()].movedim(2, 3).reshape(rows, span, kvh, 2 * hd)
+        return (q[:, :, None], g[..., :hd].transpose(1, 2).contiguous(),
+                g[..., hd:].transpose(1, 2).contiguous())
+
+    sdpa_sets = [gathered(q_, kv_) for q_, kv_, _, _ in sets]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_out = sdpa(*sdpa_sets[0])[:, :, 0]
+    res["coverage"] = coverage(dev, gen)
+    res["library_max_abs_err"] = float((lib_out.float() - fp32).abs().max())
+    kernel_ms, kernel_host_ms = time_ms(paged_attention_cuda, sets)
+    res.update(
+        kernel_ms=kernel_ms, kernel_host_ms=kernel_host_ms,
+        ref_ms=time_ms(paged_attention_ref, sets, reps=3)[0],
+        library_ms=time_ms(sdpa, sdpa_sets)[0],
+        library_note="SDPA over the pre-gathered span; gather not timed",
+        shapes=dict(rows=rows, heads=heads, kv_heads=kvh, head_dim=hd,
+                    page_size=ps, max_pages=max_pages, lengths=lengths_l),
+        **paged_bound(q, kv, lengths, tables))
+    return res
+
+
+def make_requests(vocab: int, n: int = 16):
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(17, 301, size=n)
+    lens[0], lens[1] = 17, 300
+    news = rng.integers(32, 65, size=n)
+    reqs = []
+    for i in range(n):
+        reqs.append(dict(prompt=rng.integers(0, vocab, size=int(lens[i])
+                                             ).tolist(),
+                         max_new_tokens=int(news[i]),
+                         temperature=0.8 if i == 5 else 0.0))
+    return reqs
+
+
+def teacher_forced(engine, prompt, tokens) -> dict:
+    """Re-run prompt + generated tokens through the model's dense prefill
+    path (no paged kernel) and read where each greedy token stands."""
+    import torch
+    from ray_tpu_torch.models.generate import init_decode_cache
+    cfg, dev, ps = engine.cfg, engine.device, engine.page_size
+    seq = prompt + tokens[:-1]
+    n_pg = -(-len(seq) // ps)
+    pools = init_decode_cache(cfg, n_pg + 1, ps, device=dev)
+    table = torch.arange(1, n_pg + 1, dtype=torch.int32, device=dev)[None]
+    toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+    pos = torch.arange(len(seq), device=dev)[None]
+    with torch.no_grad():
+        logits = engine.model(toks, pos, block_tables=table,
+                              kv_pools=pools)[0, len(prompt) - 1:]
+    chosen = logits[torch.arange(len(tokens), device=dev),
+                    torch.tensor(tokens, device=dev)]
+    gaps = logits.max(dim=-1).values - chosen
+    # a token whose logit equals the best one is that path's argmax
+    return {"max_gap": float(gaps.max()),
+            "agree": float((gaps == 0).float().mean())}
+
+
+def decode_step(engine) -> tuple:
+    """One block of decode steps over all rows, on the state the run left
+    (finished requests' tables and lengths): wall ms per step from CUDA
+    events, and device ms per step by kernel group from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    k_steps = engine.block_size
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        engine._block_step()
+        end.record()
+        end.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine._block_step()
+            torch.cuda.synchronize()
+    groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        name = e.key
+        if "paged_attention_kernel" in name or "combine_kernel" in name:
+            group = "paged_attention"
+        elif ("nvjet" in name or "gemm" in name.lower()
+              or "splitKreduce" in name):
+            group = "gemm"
+        else:
+            group = "other"
+        groups[group] += e.self_device_time_total / 1e3 / k_steps
+    return start.elapsed_time(end) / k_steps, groups
+
+
+def slice_phase(dev) -> tuple:
+    import torch
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                   paged_attention_ref)
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    model = GPT(cfg, device=dev, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = LLMEngine(cfg, model, num_slots=8, page_size=64,
+                       max_seq_len=1024, block_size=16, top_k=50,
+                       seed=SEED, device=dev)
+    try:
+        reqs = make_requests(cfg.vocab_size)
+        t0 = time.perf_counter()
+        engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        results = [None] * len(reqs)
+
+        def go(i):
+            r = reqs[i]
+            results[i] = engine.submit(
+                r["prompt"], max_new_tokens=r["max_new_tokens"],
+                temperature=r["temperature"])
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(reqs))]
+        paged_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = paged_attention_cuda.launches
+        steps = engine.stats.steps
+        check(not any(t.is_alive() for t in threads), "requests hung")
+        for i, (r, res) in enumerate(zip(reqs, results)):
+            check(res is not None, f"request {i} returned nothing")
+            check(len(res.tokens) == r["max_new_tokens"],
+                  f"request {i}: {len(res.tokens)} tokens, wanted "
+                  f"{r['max_new_tokens']}")
+            check(res.finish_reason == "length",
+                  f"request {i} finished by {res.finish_reason}")
+            check(res.prompt_len == len(r["prompt"]),
+                  f"request {i} prompt_len {res.prompt_len}")
+            check(all(0 <= t < cfg.vocab_size for t in res.tokens),
+                  f"request {i} token out of range")
+        check(launches == cfg.n_layers * steps,
+              f"kernel launches {launches} != n_layers {cfg.n_layers} x "
+              f"decode steps {steps}")
+        check(launches > 0, "the main path never launched the kernel")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # the kernel against the plain version on the engine's own pool,
+        # tables and lengths (those of the last decode block)
+        layer = cfg.n_layers // 2
+        pool = engine._pools[layer]
+        tables = engine._tables.clone()
+        lengths = engine._positions.clamp(min=1).to(torch.int32)
+        q = torch.randn(engine._rows, cfg.n_heads, cfg.head_dim,
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev).to(torch.bfloat16)
+        real = compare(paged_attention_cuda(q, pool, tables, lengths),
+                       paged_attention_ref(q, pool, tables, lengths))
+        real.update(layer=layer, lengths=lengths.tolist())
+
+        forced = [teacher_forced(engine, reqs[i]["prompt"],
+                                 results[i].tokens) for i in (0, 1)]
+
+        step_ms, step_device = decode_step(engine)
+    finally:
+        engine.close()
+
+    ttfts = sorted(r.time_to_first_token_s for r in results)
+    out = {
+        "phase": "slice", "model": "llama3-8b", "params": cfg.num_params(),
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "vocab": cfg.vocab_size, "num_slots": 8, "page_size": 64,
+        "max_seq_len": 1024, "block_size": 16,
+        "kv_pool_pages": engine.kv_pool_pages,
+        "requests": len(reqs), "wall_s": wall,
+        "decode_steps": steps, "kernel_launches": launches,
+        "decode_tokens": engine.stats.step_tokens,
+        "tokens_generated": engine.stats.tokens_generated,
+        "decode_tok_s": engine.stats.step_tokens / wall,
+        "tok_s": engine.stats.tokens_generated / wall,
+        "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": ttfts[-1],
+        "latency_p50_s": statistics.median(r.latency_s for r in results),
+        "decode_step_ms": step_ms, "decode_step_device_ms": step_device,
+        "device_busy_share": sum(step_device.values()) / step_ms,
+        "batch_occupancy": engine.stats.occupancy(8),
+        "peak_mem_gb": peak_gb, "init_s": init_s, "warmup_s": warm_s,
+        "real_pool_check": real, "teacher_forced": forced,
+    }
+    check(real["within_tol"] and real["finite"],
+          f"kernel disagrees with the plain version on the engine's pool: "
+          f"{real}")
+    for f in forced:
+        check(f["max_gap"] <= GAP_TOL and f["agree"] >= AGREE,
+              f"greedy tokens disagree with the dense prefill path: {f}")
+    return out, launches, real["max_abs_err"]
+
+
+def main() -> int:
+    if not (ROOT / "ray_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke.py runs from a checkout that holds ray_tpu_torch/",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs the card",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = smi_line()
+    print(smi, flush=True)
+
+    from ray_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load_library("paged_attention")
+    build_s = time.perf_counter() - t0
+    nvcc_s, log = _build.build_log["paged_attention"]
+    device = {"phase": "device", "nvidia_smi": smi,
+              "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count(),
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "build_s": build_s, "nvcc_s": nvcc_s,
+              "ptxas": [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]}
+    emit(device)
+
+    kern = kernel_phase(dev)
+    emit({"phase": "kernel", "name": "paged_attention", **kern})
+    check(kern["finite"] and kern["within_tol"],
+          f"kernel disagrees with the plain version: {kern}")
+
+    sl, launches, real_err = slice_phase(dev)
+    emit(sl)
+
+    kernels = {"kernels": [{
+        "name": "paged_attention", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+        "launches": launches,
+        "max_abs_err": max([kern["max_abs_err"], real_err]
+                           + [c["max_abs_err"] for c in kern["coverage"]]),
+        "ms": kern["kernel_ms"], "plain_ms": kern["ref_ms"],
+        "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        "library_ms": kern["library_ms"]}]}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"device": device, "kernel": kern, "slice": sl, **kernels},
+        indent=1))
+    emit(kernels)
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

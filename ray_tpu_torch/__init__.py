@@ -1,0 +1,14 @@
+"""ray_tpu_torch: the PyTorch + CUDA port of ray_tpu, for NVIDIA Hopper.
+
+The package mirrors ``ray_tpu``'s layout module for module
+(``ray_tpu_torch/ops/paged_attention.py`` answers
+``ray_tpu/ops/paged_attention.py``) and imports nothing of it: where the
+port needs something from a JAX-free module of ``ray_tpu`` it keeps its
+own copy.  Every TPU kernel on a ported path becomes a hand-written CUDA
+C++ kernel under ``ray_tpu_torch/csrc/``, built with ``nvcc`` at first
+use (``ray_tpu_torch/ops/_build.py``).
+
+Ported so far: the paged continuous-batching serving path
+(``serve/llm_engine.py`` paged mode -> ``models/gpt.py`` paged decode ->
+``ops/paged_attention.py``).  ROADMAP.md lists what is still to come.
+"""

@@ -1,0 +1,209 @@
+"""Decoder-only transformer, LLaMA-style: RMSNorm, RoPE, SwiGLU, GQA
+(counterpart of ray_tpu/models/gpt.py).
+
+The JAX model scans one block over a stacked layer axis; here the layers
+are an ``nn.ModuleList``.  Parameter names follow the flax tree
+(``blocks.{i}.attn.wq`` for ``blocks/attn/wq``), so
+``models/convert.py`` maps one onto the other.
+
+Ported: the paged decode path of ``Attention`` (the serving slice).  The
+JAX module chooses its path from ``decode``/``paged_pages`` attributes;
+here the caller's arguments choose it:
+
+  - ``kv_pools`` and ``block_tables`` given -> paged decode
+    (``_decode_attend_paged``): T > 1 is prompt prefill, T == 1 a decode
+    step through ``ops/paged_attention.py``.  The pools belong to the
+    caller (the serving engine) and are updated in place.
+  - ``kv_pools`` without ``block_tables`` -> dense slot decode, not yet
+    ported.
+  - neither -> the training forward, not yet ported.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.models.configs import TransformerConfig
+from ray_tpu_torch.ops.attention import dense_attention
+from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies
+from ray_tpu_torch.ops.paged_attention import paged_attention
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return rms_norm(x, self.scale, self.eps)
+
+
+class MLP(nn.Module):
+    """SwiGLU feed-forward."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.w_gate = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.w_up = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
+        self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
+
+    def forward(self, y):
+        return self.w_down(F.silu(self.w_gate(y)) * self.w_up(y))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        h, kvh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.wq = nn.Linear(d, h * hd, **kw)
+        self.wk = nn.Linear(d, kvh * hd, **kw)
+        self.wv = nn.Linear(d, kvh * hd, **kw)
+        self.wo = nn.Linear(h * hd, d, **kw)
+
+    def forward(self, x, cos, sin, positions=None, block_tables=None,
+                kv_pool=None, prefix_attend: bool = False):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = self.wq(x).view(b, t, h, hd)
+        k = self.wk(x).view(b, t, kvh, hd)
+        v = self.wv(x).view(b, t, kvh, hd)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+        if kv_pool is not None and block_tables is not None:
+            out = self._decode_attend_paged(q, k, v, positions, block_tables,
+                                            kv_pool, prefix_attend)
+        elif kv_pool is not None:
+            out = self._decode_attend(q, k, v, positions)
+        else:
+            out = self._train_attend(q, k, v)
+        return self.wo(out.reshape(b, t, h * hd))
+
+    def _train_attend(self, q, k, v):
+        raise NotImplementedError(
+            "the training forward (flash attention) is not ported yet: "
+            "ROADMAP.md Queue 1 item 1, the training slice")
+
+    def _decode_attend(self, q, k, v, positions):
+        raise NotImplementedError(
+            "dense slot-mode decode is not ported yet: ROADMAP.md Queue 1 "
+            "item 2 (dense slot mode, prefix_attend, handoffs)")
+
+    def _decode_attend_paged(self, q, k, v, positions, block_tables,
+                             kv_pool, prefix_attend):
+        """Scatter this call's K/V into the rows' pages, then attend.
+
+        ``positions`` [B, T]: absolute positions, contiguous per row;
+        rows may sit at different offsets.  ``block_tables`` [B,
+        max_pages] maps a row's logical page (position // page_size) to
+        a page of ``kv_pool`` [num_pages, kvh, ps, 2*hd].  T > 1 is
+        prompt prefill: the window is causal over itself, so the scatter
+        is its whole pool interaction; right-pad garbage past a real
+        prompt is overwritten by decode writes before any length mask
+        makes it visible.  Table entries that are 0 point at scratch
+        page 0, which absorbs padded rows' writes.
+
+        JAX donates the pool and returns the updated copy; here the
+        scatter writes the caller's pool in place.
+        """
+        if positions is None:
+            raise ValueError("paged decode requires positions and "
+                             "block_tables")
+        ps = kv_pool.shape[2]
+        positions = positions.long()
+        pages = torch.gather(block_tables.long(), 1, positions // ps)
+        offs = positions % ps
+        kv = torch.cat([k, v], dim=-1).to(kv_pool.dtype)
+        # advanced indices at dims 0 and 2 around a slice -> the value
+        # layout is [B, T, kvh, 2hd], as in the JAX scatter
+        kv_pool[pages, :, offs] = kv
+        if q.shape[1] > 1:
+            if prefix_attend:
+                raise NotImplementedError(
+                    "prefix_attend (suffix prefill over cached pages) is "
+                    "not ported yet: ROADMAP.md Queue 1 item 2")
+            return dense_attention(q, k, v, causal=True)
+        out = paged_attention(q[:, 0], kv_pool, block_tables,
+                              (positions[:, 0] + 1).to(torch.int32))
+        return out[:, None]
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet: ROADMAP.md Queue 1 item 4")
+        kw = dict(device=device, dtype=dtype)
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.attn = Attention(cfg, **kw)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.mlp = MLP(cfg, **kw)
+
+    def forward(self, x, cos, sin, positions=None, block_tables=None,
+                kv_pool=None, prefix_attend: bool = False):
+        x = x + self.attn(self.attn_norm(x), cos, sin, positions,
+                          block_tables, kv_pool, prefix_attend)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class GPT(nn.Module):
+    """Decoder-only LM.  ``forward`` returns fp32 logits [B, S, vocab], or
+    the post-final-norm hidden states [B, S, d_model] with
+    ``return_hidden=True`` (``head`` projects them).
+
+    Runs on the card unless ``device="cpu"`` is passed; parameters are
+    made in ``dtype`` (default ``cfg.param_dtype``)."""
+
+    def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = dtype or cfg.param_dtype
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
+                                              **kw))
+        self.blocks = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
+                                  **kw))
+        # fp32 tables, as the JAX model computes them; buffers, so they
+        # follow .to(device) but are never cast with the parameters
+        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                    cfg.rope_theta, device=device)
+        self.register_buffer("cos", cos, persistent=False)
+        self.register_buffer("sin", sin, persistent=False)
+
+    def forward(self, tokens, positions=None, *, return_hidden: bool = False,
+                block_tables=None, kv_pools: Optional[List] = None,
+                prefix_attend: bool = False):
+        cfg = self.cfg
+        if kv_pools is not None and len(kv_pools) != cfg.n_layers:
+            raise ValueError(f"{len(kv_pools)} KV pools for "
+                             f"{cfg.n_layers} layers")
+        x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, self.cos, self.sin, positions, block_tables,
+                    None if kv_pools is None else kv_pools[i], prefix_attend)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        return self.head(x)
+
+    def head(self, x):
+        """[..., d_model] post-norm hidden -> fp32 logits [..., vocab]."""
+        if self.lm_head is None:
+            return (x @ self.embed.to(self.cfg.dtype).T).float()
+        return self.lm_head(x).float()

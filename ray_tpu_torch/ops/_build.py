@@ -1,0 +1,83 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``ray_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, under
+``ray_tpu_torch/_build/`` (git-ignored).  The library's file name carries
+a hash of its source, so a library is rebuilt only when its source
+changes, and a stale one is never loaded.  Building needs the CUDA
+toolkit; nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# name -> (seconds the nvcc run took, or 0.0 when the library was
+# already built; nvcc's output, including -Xptxas -v register counts)
+build_log: Dict[str, tuple] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: the port's kernels are "
+                           "built with nvcc at first use")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, building it if
+    its source changed since the last build."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        so = library_path(name)
+        if so.exists():
+            build_log[name] = (0.0, "")
+        else:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # build under a temporary name, then rename: a concurrent or
+            # interrupted build never leaves a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                     str(SRC_DIR / f"{name}.cu")],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed to build {name}.cu:\n"
+                        f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            build_log[name] = (time.perf_counter() - t0,
+                               proc.stdout + proc.stderr)
+        lib = _loaded[name] = ctypes.CDLL(str(so))
+        return lib
