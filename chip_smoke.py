@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and hold its
-CUDA kernel against the plain PyTorch version.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
+and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout: it builds the port's kernels from
-``ray_tpu_torch/csrc/`` with nvcc (into ``ray_tpu_torch/_build/``) and
-imports nothing of JAX or of the JAX package.  Phases, one JSON line
-each:
+``ray_tpu_torch/csrc/`` with nvcc (into ``ray_tpu_torch/_build/``, one
+nvcc per source, all at once) and imports nothing of JAX or of the JAX
+package.  Phases, one JSON line each:
 
-  1. device   the card's name and power limit, the kernel build.
+  1. device   the card's name and power limit, the kernel builds.
   2. kernel   paged_attention at llama3-8b decode shapes against
               paged_attention_ref: error, and kernel / plain / SDPA time
               beside the least time the card could take.
@@ -20,7 +20,21 @@ each:
               against the plain version on the engine's own pool, and
               a teacher-forced check of the greedy tokens against the
               model's dense prefill path.
-  4. kernels  one line listing every kernel of the port.
+  4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
+              against their plain versions at gpt-small training shapes
+              (16 x 1024, 12 heads of 64, causal, bf16), at a GQA 32/8
+              head_dim-128 shape, and at fp32 / full / ragged shapes;
+              kernel / plain / SDPA time beside the bound.
+  5. train    gpt-small at full width and depth with bench.py's
+              settings (batch 16 x 1024, remat "dots", AdamW warmup 10 /
+              decay 1000), random weights from the seed and a fixed
+              batch: one step with the plain attention and one with the
+              kernels from the same weights must agree; then 20 kernel
+              steps, whose losses must be finite and fall, and whose
+              launch counts must equal the config's (remat recomputes
+              the forward); step ms, tokens/s, MFU, peak memory, and
+              device time by kernel group.
+  6. kernels  one line listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -30,6 +44,7 @@ Full results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,6 +69,25 @@ GAP_TOL = 1.0
 AGREE = 0.75
 KERNEL_SOURCE = "ray_tpu_torch/csrc/paged_attention.cu"
 KERNEL_REPLACES = "ray_tpu/ops/paged_attention.py:74"
+FLASH_SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:49",
+                  "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:127",
+                  "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:167"}
+# float32 outside the tensor cores (the flash kernels' fp32 inputs)
+FP32_FLOPS = 67e12
+# Flash kernels against their plain versions: both sum in fp32.  In bf16
+# both round the outputs to bf16 (2^-8 relative), so ATOL = RTOL = 2e-2
+# as for paged attention.  In fp32 the gap is summation order over
+# <= 2048 keys, ~1e-6; 1e-4 leaves headroom.
+FLASH_FP32_TOL = 1e-4
+# The plain and the kernel train step round at different places in bf16
+# (the plain attention rounds P to bf16 before P.V, the kernel keeps it
+# in fp32), through 12 layers: the first loss within 2e-3 relative and
+# the gradient norm within 3e-2.  A wrong kernel moves the gradient norm
+# by far more (the attention's gradients would be wrong in every layer).
+LOSS_RTOL = 2e-3
+GRAD_NORM_RTOL = 3e-2
+TRAIN_STEPS = 20
 
 
 def emit(obj) -> None:
@@ -128,13 +162,15 @@ def paged_bound(q, kv_pages, lengths, block_tables) -> dict:
             "occupied_page_bound_ms": page_bytes / HBM_BYTES_PER_S * 1e3}
 
 
-def compare(got, want) -> dict:
+def compare(got, want, atol: float = ATOL, rtol: float = RTOL) -> dict:
     import torch
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    ok = bool(torch.all(err <= ATOL + RTOL * w.abs()))
+    ok = bool(torch.all(err <= atol + rtol * w.abs()))
     return {"max_abs_err": float(err.max()),
             "max_rel_err": float((err / w.abs().clamp_min(1e-3)).max()),
+            "max_abs_want": float(w.abs().max()),
+            "frac_differing": float((err > 0).float().mean()),
             "finite": bool(torch.isfinite(g).all()), "within_tol": ok}
 
 
@@ -413,6 +449,275 @@ def slice_phase(dev) -> tuple:
     return out, launches, real["max_abs_err"]
 
 
+def flash_bound(kind: str, q, k, causal: bool) -> dict:
+    """Least time for one flash kernel call: each input read once and
+    each output written once over HBM bandwidth, against the products'
+    flops over the peak rate of the inputs' type.  Only the (query, key)
+    pairs the mask lets through count: S(S+1)/2 per head when causal.
+    Per pair K1 does 2 products of head_dim (q.k, p.v), K2 3 (q.k, dO.v,
+    dS.k) and K3 4 (q.k, dO.v, P^T.dO, dS^T.q), 2 flops per multiply-add.
+    """
+    import torch
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    esize = q.element_size()
+    qb = q.numel() * esize
+    kvb = 2 * k.numel() * esize
+    vec = b * h * sq * 4                     # lse or delta, fp32
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
+    nbytes, products = {
+        "flash_fwd": (qb + kvb + qb + vec, 2),
+        "flash_bwd_dq": (qb + kvb + qb + 2 * vec + qb, 3),
+        "flash_bwd_dkv": (qb + kvb + qb + 2 * vec + kvb, 4)}[kind]
+    flops = 2 * products * d * pairs
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / rate * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def flash_case(dev, gen, b, sq, h, kvh, d, dtype, causal, skv=None,
+               timed: bool = False) -> dict:
+    """K1, K2 and K3 on one shape against their plain versions (and, when
+    ``timed``, kernel / plain / SDPA times beside the bounds)."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    skv = sq if skv is None else skv
+    scale = d ** -0.5
+    tol = {} if dtype == torch.bfloat16 else dict(atol=FLASH_FP32_TOL,
+                                                  rtol=FLASH_FP32_TOL)
+
+    def inputs():
+        return tuple(torch.randn(*shape, generator=gen, device=dev
+                                 ).to(dtype)
+                     for shape in ((b, sq, h, d), (b, skv, kvh, d),
+                                   (b, skv, kvh, d), (b, sq, h, d)))
+
+    # two input sets (4 x 25 MB each at gpt-small shapes) so that timed
+    # calls find their inputs cold in the 50 MB L2, as a layer does
+    sets = [inputs() for _ in range(2 if timed else 1)]
+    q, k, v, do = sets[0]
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal, sm_scale=scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
+                              sm_scale=scale)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
+                                   sm_scale=scale)
+    torch.cuda.synchronize()
+    o_r, lse_r = fa.flash_fwd_ref(q, k, v, causal, scale)
+    dq_r = fa.flash_bwd_dq_ref(q, k, v, o, lse, do, causal, scale)
+    dk_r, dv_r = fa.flash_bwd_dkv_ref(q, k, v, o, lse, do, causal, scale)
+    res = {"shape": [b, sq, skv, h, kvh, d], "dtype": str(dtype),
+           "causal": causal,
+           "flash_fwd": {"o": compare(o, o_r, **tol),
+                         "lse": compare(lse, lse_r, atol=FLASH_FP32_TOL,
+                                        rtol=FLASH_FP32_TOL)},
+           "flash_bwd_dq": {"dq": compare(dq, dq_r, **tol)},
+           "flash_bwd_dkv": {"dk": compare(dk, dk_r, **tol),
+                             "dv": compare(dv, dv_r, **tol)}}
+    for kind in FLASH_REPLACES:
+        for name, c in res[kind].items():
+            check(c["finite"] and c["within_tol"],
+                  f"{kind} {name} disagrees with the plain version at "
+                  f"{res['shape']} {dtype} causal={causal}: {c}")
+        res[kind]["max_abs_err"] = max(c["max_abs_err"]
+                                       for c in res[kind].values())
+    if not timed:
+        return res
+
+    outs = [fa.flash_fwd_cuda(q_, k_, v_, causal=causal, sm_scale=scale)
+            for q_, k_, v_, _ in sets]
+    bwd_sets = [(q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1)
+                 .transpose(1, 2).contiguous())
+                for (q_, k_, v_, do_), (o_, lse_) in zip(sets, outs)]
+    ref_bwd_sets = [(q_, k_, v_, o_, lse_, do_)
+                    for (q_, k_, v_, do_), (o_, lse_) in zip(sets, outs)]
+
+    def fwd(q_, k_, v_, _):
+        return fa.flash_fwd_cuda(q_, k_, v_, causal=causal, sm_scale=scale)
+
+    def bwd_dq(*a):
+        return fa.flash_bwd_dq_cuda(*a, causal=causal, sm_scale=scale)
+
+    def bwd_dkv(*a):
+        return fa.flash_bwd_dkv_cuda(*a, causal=causal, sm_scale=scale)
+
+    def ref_fwd(q_, k_, v_, _):
+        return fa.flash_fwd_ref(q_, k_, v_, causal, scale)
+
+    def ref_dq(*a):
+        return fa.flash_bwd_dq_ref(*a, causal, scale)
+
+    def ref_dkv(*a):
+        return fa.flash_bwd_dkv_ref(*a, causal, scale)
+
+    # the library yardstick: SDPA on contiguous [B, H, S, D] copies
+    lib_sets = [tuple(t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q_, k_, v_)) + (do_.transpose(1, 2),)
+                for q_, k_, v_, do_ in sets]
+
+    def sdpa(q_, k_, v_, *_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal,
+                                              scale=scale,
+                                              enable_gqa=kvh != h)
+
+    graphs = [(sdpa(*a), a) for a in lib_sets]
+
+    def sdpa_bwd(i):
+        out, a = graphs[i]
+        return torch.autograd.grad(out, a[:3], a[3], retain_graph=True)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa, lib_sets)[0]
+    lib_bwd = time_ms(sdpa_bwd, [(0,), (1,)])[0]
+    for kind, fn, ref, args, ref_args, lib in (
+            ("flash_fwd", fwd, ref_fwd, sets, sets, lib_fwd),
+            ("flash_bwd_dq", bwd_dq, ref_dq, bwd_sets, ref_bwd_sets,
+             lib_bwd),
+            ("flash_bwd_dkv", bwd_dkv, ref_dkv, bwd_sets, ref_bwd_sets,
+             lib_bwd)):
+        ms, host_ms = time_ms(fn, args)
+        res[kind].update(ms=ms, host_ms=host_ms,
+                         plain_ms=time_ms(ref, ref_args, reps=2)[0],
+                         library_ms=lib, **flash_bound(kind, q, k, causal))
+    res["library_note"] = ("SDPA forward for K1; SDPA backward (dq, dk and "
+                           "dv together) for K2 and K3")
+    return res
+
+
+def flash_phase(dev) -> dict:
+    """The flash kernels at the training slice's shapes (timed), at a GQA
+    32/8 head_dim-128 shape with S not a multiple of the 64-row tiles,
+    and at fp32 / non-causal / q_len != kv_len shapes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    at_slice = flash_case(dev, gen, 16, 1024, 12, 12, 64, bf16, True,
+                          timed=True)
+    coverage = [flash_case(dev, gen, *c) for c in (
+        (2, 2000, 32, 8, 128, bf16, True),
+        (2, 200, 4, 2, 64, fp32, False, 137),
+        (2, 130, 4, 2, 128, fp32, True),
+        (3, 100, 6, 3, 64, bf16, False, 300))]
+    return {"slice_shape": at_slice, "coverage": coverage}
+
+
+def train_phase(dev, name: str = "gpt-small", batch: int = 16,
+                seq: int = 1024, steps: int = TRAIN_STEPS) -> dict:
+    """bench.py's headline run on the port: make_train over GPT at full
+    width and depth, the dense lm_loss_fn head, one fixed batch."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.train.step import OptimizerConfig, make_train
+
+    over = dict(max_seq_len=seq, remat=True)
+    cfg = get_config(name, attention_impl="flash", **over)
+    opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq + 1))).to(dev)
+    data = {"tokens": tokens}
+    model = GPT(cfg, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+
+    # one step of the plain attention from the same weights
+    plain = GPT(get_config(name, attention_impl="xla", **over), device=dev)
+    plain.load_state_dict(model.state_dict())
+    init_p, step_p = make_train(plain, opt)
+    _, mp = step_p(init_p(), data)
+    plain_m = {k: float(v) for k, v in mp.items()}
+    del plain, init_p, step_p, mp
+    torch.cuda.empty_cache()
+
+    init_fn, step_fn = make_train(model, opt)
+    state = init_fn()
+    state, m1 = step_fn(state, data)
+    first = {k: float(v) for k, v in m1.items()}
+    parity = {"plain": plain_m, "flash": first,
+              "loss_rel": abs(first["loss"] - plain_m["loss"])
+              / abs(plain_m["loss"]),
+              "grad_norm_rel": abs(first["grad_norm"] - plain_m["grad_norm"])
+              / abs(plain_m["grad_norm"])}
+    check(parity["loss_rel"] <= LOSS_RTOL
+          and parity["grad_norm_rel"] <= GRAD_NORM_RTOL,
+          f"the kernel step disagrees with the plain step: {parity}")
+
+    kernels = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
+               fa.flash_bwd_dkv_cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kfn in kernels:
+        kfn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step_fn(state, data)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kfn.__name__.removesuffix("_cuda"): kfn.launches
+                for kfn in kernels}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+
+    L = cfg.n_layers
+    expected = {"flash_fwd": steps * L * (2 if cfg.remat else 1),
+                "flash_bwd_dq": steps * L, "flash_bwd_dkv": steps * L}
+    check(launches == expected,
+          f"kernel launches {launches} != expected {expected} "
+          f"({steps} steps x {L} layers, remat recomputes the forward)")
+    check(all(math.isfinite(x) for x in losses + grad_norms),
+          f"non-finite loss or grad norm: {losses} {grad_norms}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+
+    # device time of one step by kernel group
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, data)
+        torch.cuda.synchronize()
+    groups = {"flash": 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+           for e in events[:15]]
+    for e in events:
+        key = e.key.lower()
+        if "flash_" in key:
+            group = "flash"
+        elif "nvjet" in key or "gemm" in key or "splitk" in key \
+                or "cutlass" in key:
+            group = "gemm"
+        elif "multi_tensor" in key or "foreach" in key:
+            group = "optimizer"
+        else:
+            group = "other"
+        groups[group] += e.self_device_time_total / 1e3
+
+    step_s = wall / steps
+    tokens_s = batch * seq / step_s
+    flops_per_token = 6 * cfg.num_params() + 12 * L * cfg.d_model * seq
+    return {"model": name, "params": cfg.num_params(), "n_layers": L,
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
+            "remat_policy": cfg.remat_policy, "steps": steps,
+            "parity": parity, "losses": losses, "grad_norms": grad_norms,
+            "launches": launches, "expected_launches": expected,
+            "step_ms": step_s * 1e3, "tokens_s": tokens_s,
+            "flops_per_token": flops_per_token,
+            "mfu": flops_per_token * tokens_s / BF16_FLOPS,
+            "peak_mem_gb": peak_gb, "step_device_ms": groups,
+            "top_kernels_ms_calls": top,
+            "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
+
+
 def main() -> int:
     if not (ROOT / "ray_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py runs from a checkout that holds ray_tpu_torch/",
@@ -428,17 +733,20 @@ def main() -> int:
     print(smi, flush=True)
 
     from ray_tpu_torch.ops import _build
+    libs = ("paged_attention", "flash_attention")
     t0 = time.perf_counter()
-    _build.load_library("paged_attention")
+    _build.build(libs)
     build_s = time.perf_counter() - t0
-    nvcc_s, log = _build.build_log["paged_attention"]
     device = {"phase": "device", "nvidia_smi": smi,
               "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count(),
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              "build_s": build_s, "nvcc_s": nvcc_s,
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]}
+              "build_s": build_s,
+              "nvcc_s": {n: _build.build_log[n][0] for n in libs},
+              "ptxas": {n: [ln.strip() for ln in _build.build_log[n][1]
+                            .splitlines()
+                            if "registers" in ln or "spill" in ln]
+                        for n in libs}}
     emit(device)
 
     kern = kernel_phase(dev)
@@ -448,8 +756,16 @@ def main() -> int:
 
     sl, launches, real_err = slice_phase(dev)
     emit(sl)
+    torch.cuda.empty_cache()
 
-    kernels = {"kernels": [{
+    flash = flash_phase(dev)
+    emit({"phase": "flash", **flash})
+    torch.cuda.empty_cache()
+
+    train = train_phase(dev)
+    emit({"phase": "train", **train})
+
+    rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches,
@@ -457,12 +773,24 @@ def main() -> int:
                            + [c["max_abs_err"] for c in kern["coverage"]]),
         "ms": kern["kernel_ms"], "plain_ms": kern["ref_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]}
+        "library_ms": kern["library_ms"]}]
+    at_slice = flash["slice_shape"]
+    for kind, replaces in FLASH_REPLACES.items():
+        r = at_slice[kind]
+        rows.append({
+            "name": kind, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": replaces, "launches": train["launches"][kind],
+            "max_abs_err": max([r["max_abs_err"]] + [
+                c[kind]["max_abs_err"] for c in flash["coverage"]]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    kernels = {"kernels": rows}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"device": device, "kernel": kern, "slice": sl, **kernels},
-        indent=1))
+        {"device": device, "kernel": kern, "slice": sl, "flash": flash,
+         "train": train, **kernels}, indent=1))
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,5 +10,8 @@ use (``ray_tpu_torch/ops/_build.py``).
 
 Ported so far: the paged continuous-batching serving path
 (``serve/llm_engine.py`` paged mode -> ``models/gpt.py`` paged decode ->
-``ops/paged_attention.py``).  ROADMAP.md lists what is still to come.
+``ops/paged_attention.py``) and the one-device training path
+(``train/step.py`` ``make_train`` -> ``models/gpt.py`` training forward
+-> ``ops/attention.py`` -> ``ops/flash_attention.py``, with
+``ops/losses.py``).  ROADMAP.md lists what is still to come.
 """

@@ -4,11 +4,12 @@
 The JAX model scans one block over a stacked layer axis; here the layers
 are an ``nn.ModuleList``.  Parameter names follow the flax tree
 (``blocks.{i}.attn.wq`` for ``blocks/attn/wq``), so
-``models/convert.py`` maps one onto the other.
+``models/convert.py`` maps one onto the other.  Parameters are stored in
+``param_dtype`` and every projection computes in ``cfg.dtype``, as flax's
+``DenseGeneral(dtype, param_dtype)`` does (``Dense``).
 
-Ported: the paged decode path of ``Attention`` (the serving slice).  The
-JAX module chooses its path from ``decode``/``paged_pages`` attributes;
-here the caller's arguments choose it:
+The JAX module chooses its path from ``decode``/``paged_pages``
+attributes; here the caller's arguments choose it:
 
   - ``kv_pools`` and ``block_tables`` given -> paged decode
     (``_decode_attend_paged``): T > 1 is prompt prefill, T == 1 a decode
@@ -16,22 +17,63 @@ here the caller's arguments choose it:
     caller (the serving engine) and are updated in place.
   - ``kv_pools`` without ``block_tables`` -> dense slot decode, not yet
     ported.
-  - neither -> the training forward, not yet ported.
+  - neither -> the training forward: causal attention through
+    ``ops/attention.py`` with ``cfg.attention_impl``, each block under
+    ``torch.utils.checkpoint`` per ``cfg.remat``/``remat_policy``/
+    ``remat_layers`` when gradients are on.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.configs import TransformerConfig
-from ray_tpu_torch.ops.attention import dense_attention
+from ray_tpu_torch.ops.attention import attention, dense_attention
 from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies
 from ray_tpu_torch.ops.paged_attention import paged_attention
+
+_aten = torch.ops.aten
+# the remat ladder of ray_tpu/models/gpt.py stack_layers, least to most
+# memory: "nothing" recomputes the whole block, "block_outs" keeps the
+# residual stream after attention (two checkpointed halves), "dots" keeps
+# the outputs of the projections (matmuls with no batch dimension), and
+# "dots_all" those of every matmul
+_SAVED_OPS = {
+    "dots": [_aten.mm.default, _aten.addmm.default],
+    "dots_all": [_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                 _aten.baddbmm.default],
+}
+REMAT_POLICIES = ("nothing", "block_outs", "dots", "dots_all")
+
+
+class Dense(nn.Linear):
+    """A bias-free projection with flax ``DenseGeneral(dtype,
+    param_dtype)`` semantics: ``weight`` [out, in] is stored in the
+    parameter dtype, and each call casts it and the input to
+    ``compute_dtype``."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype,
+                 *, device=None, dtype=None):
+        super().__init__(d_in, d_out, bias=False, device=device, dtype=dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt, w = self.compute_dtype, self.weight
+        # the dtype tests keep a model already in compute_dtype (serving)
+        # free of per-call cast dispatches
+        if w.dtype != dt:
+            w = w.to(dt)
+        if x.dtype != dt:
+            x = x.to(dt)
+        return F.linear(x, w)
 
 
 class RMSNorm(nn.Module):
@@ -50,10 +92,10 @@ class MLP(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.w_gate = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
-        self.w_up = nn.Linear(cfg.d_model, cfg.d_ff, **kw)
-        self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, **kw)
+        kw = dict(device=device, dtype=dtype)
+        self.w_gate = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+        self.w_up = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, **kw)
+        self.w_down = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, **kw)
 
     def forward(self, y):
         return self.w_down(F.silu(self.w_gate(y)) * self.w_up(y))
@@ -64,11 +106,11 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, kvh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.wq = nn.Linear(d, h * hd, **kw)
-        self.wk = nn.Linear(d, kvh * hd, **kw)
-        self.wv = nn.Linear(d, kvh * hd, **kw)
-        self.wo = nn.Linear(h * hd, d, **kw)
+        kw = dict(device=device, dtype=dtype)
+        self.wq = Dense(d, h * hd, cfg.dtype, **kw)
+        self.wk = Dense(d, kvh * hd, cfg.dtype, **kw)
+        self.wv = Dense(d, kvh * hd, cfg.dtype, **kw)
+        self.wo = Dense(h * hd, d, cfg.dtype, **kw)
 
     def forward(self, x, cos, sin, positions=None, block_tables=None,
                 kv_pool=None, prefix_attend: bool = False):
@@ -90,9 +132,10 @@ class Attention(nn.Module):
         return self.wo(out.reshape(b, t, h * hd))
 
     def _train_attend(self, q, k, v):
-        raise NotImplementedError(
-            "the training forward (flash attention) is not ported yet: "
-            "ROADMAP.md Queue 1 item 1, the training slice")
+        """Causal self-attention over the window, through the dispatcher
+        with ``cfg.attention_impl`` (GQA heads go to the kernels as they
+        are)."""
+        return attention(q, k, v, causal=True, impl=self.cfg.attention_impl)
 
     def _decode_attend(self, q, k, v, positions):
         raise NotImplementedError(
@@ -152,9 +195,33 @@ class Block(nn.Module):
 
     def forward(self, x, cos, sin, positions=None, block_tables=None,
                 kv_pool=None, prefix_attend: bool = False):
-        x = x + self.attn(self.attn_norm(x), cos, sin, positions,
-                          block_tables, kv_pool, prefix_attend)
+        x = self.attn_half(x, cos, sin, positions, block_tables, kv_pool,
+                           prefix_attend)
+        return self.mlp_half(x)
+
+    def attn_half(self, x, cos, sin, positions=None, block_tables=None,
+                  kv_pool=None, prefix_attend: bool = False):
+        return x + self.attn(self.attn_norm(x), cos, sin, positions,
+                             block_tables, kv_pool, prefix_attend)
+
+    def mlp_half(self, x):
         return x + self.mlp(self.mlp_norm(x))
+
+
+def remat_block(blk: Block, policy: str, x, *args):
+    """``blk(x, *args)`` under per-block activation checkpointing with one
+    of ``REMAT_POLICIES``.  Remat changes memory, never values."""
+    if policy == "nothing":
+        return checkpoint(blk, x, *args, use_reentrant=False)
+    if policy == "block_outs":
+        x = checkpoint(blk.attn_half, x, *args, use_reentrant=False)
+        return checkpoint(blk.mlp_half, x, use_reentrant=False)
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat_policy {policy!r}; choose one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    ctx = functools.partial(create_selective_checkpoint_contexts,
+                            _SAVED_OPS[policy])
+    return checkpoint(blk, x, *args, use_reentrant=False, context_fn=ctx)
 
 
 class GPT(nn.Module):
@@ -163,7 +230,8 @@ class GPT(nn.Module):
     ``return_hidden=True`` (``head`` projects them).
 
     Runs on the card unless ``device="cpu"`` is passed; parameters are
-    made in ``dtype`` (default ``cfg.param_dtype``)."""
+    made in ``dtype`` (default ``cfg.param_dtype``) and activations are
+    ``cfg.dtype``."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
@@ -177,14 +245,25 @@ class GPT(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
-                                  **kw))
+                        Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, **kw))
         # fp32 tables, as the JAX model computes them; buffers, so they
         # follow .to(device) but are never cast with the parameters
         cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len,
                                     cfg.rope_theta, device=device)
         self.register_buffer("cos", cos, persistent=False)
         self.register_buffer("sin", sin, persistent=False)
+
+    def _n_remat(self, kv_pools) -> int:
+        """How many leading blocks run under checkpointing: none when
+        decoding or without gradients; else ``remat_layers`` when it lies
+        strictly between 0 and n_layers, and all of them otherwise (as
+        the JAX model splits its stack)."""
+        cfg = self.cfg
+        if not cfg.remat or kv_pools is not None \
+                or not torch.is_grad_enabled():
+            return 0
+        n = cfg.n_layers if cfg.remat_layers is None else cfg.remat_layers
+        return n if 0 < n < cfg.n_layers else cfg.n_layers
 
     def forward(self, tokens, positions=None, *, return_hidden: bool = False,
                 block_tables=None, kv_pools: Optional[List] = None,
@@ -194,9 +273,14 @@ class GPT(nn.Module):
             raise ValueError(f"{len(kv_pools)} KV pools for "
                              f"{cfg.n_layers} layers")
         x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
+        n_remat = self._n_remat(kv_pools)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, self.cos, self.sin, positions, block_tables,
+            args = (self.cos, self.sin, positions, block_tables,
                     None if kv_pools is None else kv_pools[i], prefix_attend)
+            if i < n_remat:
+                x = remat_block(blk, cfg.remat_policy, x, *args)
+            else:
+                x = blk(x, *args)
         x = self.final_norm(x)
         if return_hidden:
             return x

@@ -4,8 +4,9 @@ Each ``ray_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``ray_tpu_torch/_build/`` (git-ignored).  The library's file name carries
 a hash of its source, so a library is rebuilt only when its source
-changes, and a stale one is never loaded.  Building needs the CUDA
-toolkit; nothing here runs when the module is imported.
+changes, and a stale one is never loaded.  ``build`` compiles several
+sources at once, one nvcc each.  Building needs the CUDA toolkit;
+nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -47,37 +48,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``, building it if
-    its source changed since the last build."""
+def build(names) -> None:
+    """Build every library of ``names`` whose source changed since its
+    last build: one nvcc process per source, all started together."""
     with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        so = library_path(name)
-        if so.exists():
-            build_log[name] = (0.0, "")
-        else:
+        procs = {}
+        for name in names:
+            if name in _loaded:
+                continue
+            so = library_path(name)
+            if so.exists():
+                build_log.setdefault(name, (0.0, ""))
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # build under a temporary name, then rename: a concurrent or
             # interrupted build never leaves a half-written library
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     str(SRC_DIR / f"{name}.cu")],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {name}.cu:\n"
-                        f"{proc.stdout}{proc.stderr}")
+            procs[name] = (so, tmp, time.perf_counter(), subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 str(SRC_DIR / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (so, tmp, t0, proc) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = (time.perf_counter() - t0, out)
+            if proc.returncode == 0:
                 os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            build_log[name] = (time.perf_counter() - t0,
-                               proc.stdout + proc.stderr)
-        lib = _loaded[name] = ctypes.CDLL(str(so))
+            else:
+                failed.append(f"nvcc failed to build {name}.cu:\n{out}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``, building it if
+    its source changed since the last build."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib

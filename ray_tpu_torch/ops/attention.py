@@ -1,11 +1,18 @@
-"""Dense multi-head attention (counterpart of ray_tpu/ops/attention.py).
+"""Multi-head attention with a selectable implementation (counterpart of
+ray_tpu/ops/attention.py).
+
+``impl``:
+  - ``"xla"``   — ``dense_attention``: einsum attention with fp32 logits;
+                  runs everywhere, materialises [Sq, Skv].
+  - ``"flash"`` — ``ops/flash_attention.py``: the hand-written CUDA kernels
+                  on CUDA tensors, their plain versions on CPU tensors.
+  - ``"auto"``  — flash for CUDA tensors, ``dense_attention`` for CPU ones.
+  - ``"splash"``, ``"ring"``, ``"ulysses"`` — not ported yet; they raise
+    and name their ROADMAP items.
 
 Layout as in the JAX package: ``q`` [batch, q_len, heads, head_dim];
 ``k``/``v`` [batch, kv_len, kv_heads, head_dim], grouped-query when
 ``kv_heads < heads``.
-
-The ``attention(impl=...)`` dispatcher and the flash kernel belong to
-the training slice and are not ported yet (ROADMAP.md, Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -15,6 +22,15 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+_UNPORTED = {
+    "splash": "splash attention (kernel K5) is not ported yet: ROADMAP.md "
+              "Queue 2",
+    "ring": "ring attention is not ported yet: ROADMAP.md Queue 1 item 4 "
+            "(long context)",
+    "ulysses": "ulysses attention is not ported yet: ROADMAP.md Queue 1 "
+               "item 4 (long context)",
+}
 
 
 def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -64,3 +80,26 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sm_scale: Optional[float] = None,
+              impl: str = "auto",
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention entry point (see the module docstring).  A ``mask`` sends
+    flash and splash calls to ``dense_attention``, as in the JAX package:
+    the kernels have no padding-mask path.  The flash kernels take
+    grouped-query heads as they are, with no ``repeat_kv`` copy."""
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "xla"
+    if impl in ("flash", "splash") and mask is not None:
+        impl = "xla"
+    if impl in _UNPORTED:
+        raise NotImplementedError(_UNPORTED[impl])
+    if impl == "flash":
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    if impl == "xla":
+        return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               mask=mask)
+    raise ValueError(f"unknown attention impl: {impl!r}")

@@ -1,0 +1,328 @@
+"""The optimizer and the train step on one device (counterpart of
+ray_tpu/train/step.py).
+
+``make_train`` is the one-device counterpart of ``make_sharded_train``:
+the same optimizer, losses, batch contract and metrics, without the mesh,
+the shardings and the donation (ROADMAP.md Queue 1 item 4, multi-GPU
+training).  The JAX step is a pure function of an immutable state; here
+the step updates the model's parameters and the optimizer state in
+place, which saves a copy of both.
+
+The optimizer repeats optax's arithmetic, not ``torch.optim``'s:
+
+  - ``clip_by_global_norm`` scales by ``max_norm / norm`` with no epsilon
+    (``clip_grad_norm_`` adds 1e-6);
+  - AdamW is ``scale_by_adam`` (bias corrections from the incremented
+    count, eps outside the square root), then the decoupled decay
+    ``+ weight_decay * p`` under ``_decay_mask``, then ``-lr``;
+  - the learning rate comes from ``warmup_cosine_decay_schedule`` at the
+    count before the update, so the first update has lr 0: it fills the
+    moments and moves no parameter;
+  - ``mu_dtype="bfloat16"`` stores the first moment in bf16 and uses the
+    fp32 value of this step for the update (b1 rounded to bf16 where it
+    scales the stored moment, as in optax);
+  - ``accum_steps > 1`` follows ``optax.MultiSteps``: a running mean of the
+    gradients, one real update every k-th call, and a schedule that counts
+    only real updates.
+
+The MoE routers' aux loss (``_lm_loss_body``) waits for the MoE block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+Params = Dict[str, torch.Tensor]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _decay_mask(params: Params) -> Dict[str, bool]:
+    """Weight-decay the projection weights and ``embed``, by parameter
+    name; norm scales are not decayed."""
+    return {n: n == "embed" or n.endswith(".weight") for n in params}
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0) -> Callable[[int], float]:
+    """optax's ``warmup_cosine_decay_schedule``: linear from init to peak
+    over ``warmup_steps``, then cosine down to ``end_value`` at
+    ``decay_steps`` (which includes the warmup), then flat."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError("the cosine decay needs decay_steps > warmup_steps")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - count / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        t = min(count - warmup_steps, cos_steps)
+        cosine = 0.5 * (1 + math.cos(math.pi * t / cos_steps))
+        return peak_value * ((1 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1,
+    b2, eps, weight_decay, mu_dtype, mask))`` over named parameters,
+    applied in place."""
+
+    def __init__(self, schedule: Callable[[int], float], *, b1: float,
+                 b2: float, weight_decay: float, grad_clip: float,
+                 eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.grad_clip = weight_decay, grad_clip
+        self.mu_dtype = mu_dtype
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype)
+                       for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p, dtype=torch.float32)
+                       for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, params: Params, grads: Params,
+               state: Dict[str, Any]) -> Dict[str, Any]:
+        names = list(params)
+        gs = [grads[n].float() for n in names]
+        norm = global_norm(gs)
+        # optax.clip_by_global_norm: g where norm < max, else g / norm * max
+        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
+                            self.grad_clip / norm)
+        gs = torch._foreach_mul(gs, scale)
+        b1, b2 = self.b1, self.b2
+        # optax multiplies the moment by a weakly typed b1, which takes
+        # the moment's dtype (0.8984375 for bf16); the jitted product
+        # itself stays fp32
+        b1_m = float(torch.tensor(b1, dtype=self.mu_dtype))
+        mu = torch._foreach_mul([state["mu"][n].float() for n in names],
+                                b1_m)
+        nu = [state["nu"][n] for n in names]
+        torch._foreach_add_(mu, gs, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
+        count = state["count"] + 1
+        upd = torch._foreach_div(mu, 1 - b1 ** count)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - b2 ** count))
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            mask = _decay_mask(params)
+            dec = [i for i, n in enumerate(names) if mask[n]]
+            torch._foreach_add_([upd[i] for i in dec],
+                                [params[names[i]].float() for i in dec],
+                                alpha=self.weight_decay)
+        lr = self.schedule(state["count"])
+        torch._foreach_add_([params[n] for n in names], upd, alpha=-lr)
+        return {"count": count,
+                "mu": {n: m.to(self.mu_dtype) for n, m in zip(names, mu)},
+                "nu": state["nu"]}
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, k)``: average the gradients of k calls and
+    apply ``inner`` on every k-th; the calls between move nothing."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        self.inner, self.k = inner, every_k
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        return {"mini_step": 0, "inner": self.inner.init(params),
+                "acc": {n: torch.zeros_like(p, dtype=torch.float32)
+                        for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, params: Params, grads: Params,
+               state: Dict[str, Any]) -> Dict[str, Any]:
+        names = list(params)
+        acc = [state["acc"][n] for n in names]
+        # Welford mean: acc + (g - acc) / (n + 1)
+        diff = torch._foreach_sub([grads[n].float() for n in names], acc)
+        torch._foreach_div_(diff, state["mini_step"] + 1)
+        torch._foreach_add_(acc, diff)
+        if state["mini_step"] == self.k - 1:
+            state["inner"] = self.inner.update(params, state["acc"],
+                                               state["inner"])
+            torch._foreach_zero_(acc)
+        state["mini_step"] = (state["mini_step"] + 1) % self.k
+        return state
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    decay_steps: int = 10000
+    min_lr_ratio: float = 0.1
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    accum_steps: int = 1
+    # "bfloat16" halves the first-moment buffer (the second stays fp32)
+    mu_dtype: str = "float32"
+    optimizer: str = "adamw"
+
+    def schedule(self) -> Callable[[int], float]:
+        return warmup_cosine_decay(
+            0.0, self.learning_rate, self.warmup_steps,
+            max(self.decay_steps, self.warmup_steps + 1),
+            self.learning_rate * self.min_lr_ratio)
+
+    def make(self):
+        if self.optimizer == "adafactor":
+            raise NotImplementedError(
+                "adafactor is not ported yet: ROADMAP.md Queue 1 item 1 "
+                "(the rest of training)")
+        if self.optimizer != "adamw":
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        tx = AdamW(self.schedule(), b1=self.b1, b2=self.b2,
+                   weight_decay=self.weight_decay, grad_clip=self.grad_clip,
+                   mu_dtype=_DTYPES[self.mu_dtype])
+        if self.accum_steps > 1:
+            return MultiSteps(tx, self.accum_steps)
+        return tx
+
+
+def cast_params_once(model: nn.Module, dtype=torch.bfloat16) -> Params:
+    """The model's parameters with fp32 matrices and embeddings cast to the
+    activation dtype once, outside the rematted blocks, for
+    ``torch.func.functional_call``.  Under remat the cast inside each
+    projection would otherwise re-read the fp32 masters on every
+    recompute.  1-D parameters (norm scales) stay fp32.  Gradients still
+    reach the fp32 masters through the cast."""
+    return {n: p.to(dtype) if p.dtype == torch.float32 and p.dim() >= 2
+            else p for n, p in model.named_parameters()}
+
+
+def _apply(model: nn.Module, inputs, param_cast, **kw):
+    """(model output, the parameters it ran with)."""
+    if param_cast is None:
+        return model(inputs, **kw), dict(model.named_parameters())
+    params = cast_params_once(model, param_cast)
+    return torch.func.functional_call(model, params, (inputs,), kw), params
+
+
+def _lm_loss_body(model: nn.Module, batch: Dict[str, Any],
+                  head: Callable) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Shared next-token plumbing: slice tokens and mask, then run
+    ``head(inputs, mask, targets) -> (loss, denom)``."""
+    dev = model.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=dev)[:, 1:].float()
+    loss, denom = head(inputs, mask, targets)
+    return loss, {"loss": loss, "tokens": denom}
+
+
+def lm_loss_fn(model: nn.Module, batch: Dict[str, Any], z_loss: float = 0.0,
+               param_cast=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token LM loss. batch: {"tokens": [B, S+1], "mask"?}.
+
+    ``param_cast``: optional dtype for :func:`cast_params_once`."""
+    from ray_tpu_torch.ops.losses import softmax_cross_entropy
+
+    def head(inputs, mask, targets):
+        logits, _ = _apply(model, inputs, param_cast)
+        return softmax_cross_entropy(logits, targets, mask, z_loss)
+
+    return _lm_loss_body(model, batch, head)
+
+
+def lm_loss_chunked_fn(model: nn.Module, batch: Dict[str, Any],
+                       z_loss: float = 0.0, chunk_size: int = 256,
+                       head_weight: Optional[Callable] = None,
+                       param_cast=None
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Next-token LM loss with the chunked projection head
+    (``ops/losses.py`` ``chunked_lm_loss``).  Same batch contract as
+    ``lm_loss_fn``; the model must take ``return_hidden=True``.
+
+    ``head_weight(params) -> (weight, transpose_weight)`` selects the
+    projection weight; by default the untied ``lm_head.weight`` [V, D],
+    else the tied ``embed`` [V, D], and it raises for models with
+    neither."""
+    from ray_tpu_torch.ops.losses import chunked_lm_loss
+
+    def head(inputs, mask, targets):
+        hidden, params = _apply(model, inputs, param_cast,
+                                return_hidden=True)
+        if head_weight is not None:
+            weight, transpose = head_weight(params)
+        elif "lm_head.weight" in params:
+            weight, transpose = params["lm_head.weight"], True
+        elif "embed" in params:
+            weight, transpose = params["embed"], True
+        else:
+            raise ValueError(
+                "lm_loss_chunked_fn could not find the projection head "
+                "(no 'lm_head.weight' or 'embed' parameter); pass "
+                "head_weight=")
+        return chunked_lm_loss(hidden, weight, targets, mask, z_loss,
+                               chunk_size, transpose_weight=transpose)
+
+    return _lm_loss_body(model, batch, head)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (whose parameters are the trained ones), the optimizer's
+    state, and the number of steps taken."""
+    model: nn.Module
+    opt_state: Dict[str, Any]
+    step: int = 0
+
+
+def make_train(model: nn.Module,
+               optimizer: Optional[OptimizerConfig] = None,
+               loss_fn: Callable = lm_loss_fn,
+               z_loss: Optional[float] = None):
+    """Returns ``(init_fn, step_fn)``.
+
+    ``init_fn() -> TrainState`` builds the optimizer state for the model's
+    current parameters (initialise or load them first).
+    ``step_fn(state, batch) -> (state, metrics)`` takes one step in place;
+    metrics hold 0-d tensors ``loss``, ``tokens`` and ``grad_norm`` (the
+    norm of the raw gradients, before clipping), read without a host sync.
+    ``z_loss`` defaults to ``model.cfg.z_loss``.
+    """
+    tx = (optimizer or OptimizerConfig()).make()
+    if z_loss is None:
+        z_loss = getattr(getattr(model, "cfg", None), "z_loss", 0.0)
+
+    def init_fn() -> TrainState:
+        return TrainState(model=model,
+                          opt_state=tx.init(dict(model.named_parameters())))
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        params = dict(state.model.named_parameters())
+        loss, metrics = loss_fn(state.model, batch, z_loss)
+        raw = torch.autograd.grad(loss, list(params.values()),
+                                  allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), raw)}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads.values())
+        state.opt_state = tx.update(params, grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return init_fn, step_fn

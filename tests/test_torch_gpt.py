@@ -23,6 +23,7 @@ from ray_tpu_torch.models.configs import get_config
 from ray_tpu_torch.models.convert import init_weights, params_from_jax
 from ray_tpu_torch.models.generate import init_decode_cache
 from ray_tpu_torch.models.gpt import GPT
+from ray_tpu_torch.train.step import OptimizerConfig
 
 ATOL = 1e-4
 PS = 16
@@ -126,12 +127,56 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         LLMEngine(cfg, {})
 
 
-def test_unported_paths_raise_and_name_the_roadmap():
+@pytest.mark.parametrize("path", ["splash", "adafactor", "slot_decode"])
+def test_unported_paths_raise_and_name_the_roadmap(path):
     cfg = get_config("tiny")
-    model = GPT(cfg, device="cpu")
     tokens = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(tokens)
-    pools = init_decode_cache(cfg, 4, PS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(tokens, torch.arange(4)[None], kv_pools=pools)
+        if path == "splash":
+            GPT(get_config("tiny", attention_impl="splash"),
+                device="cpu")(tokens)
+        elif path == "adafactor":
+            OptimizerConfig(optimizer="adafactor").make()
+        else:
+            pools = init_decode_cache(cfg, 4, PS, device="cpu")
+            GPT(cfg, device="cpu")(tokens, torch.arange(4)[None],
+                                   kv_pools=pools)
+
+
+def test_bf16_compute_over_fp32_params_matches_jax():
+    """fp32 masters with bf16 activations: every projection casts its
+    weight to bf16 at each call, as flax's DenseGeneral(dtype,
+    param_dtype) does.  Paged prefill logits against the JAX model built
+    with the same dtype and param_dtype.
+
+    Tolerance atol 0.05: both sides round activations and matmul outputs
+    to bf16 (2^-8 relative) at the same places but sum in different
+    orders, through two blocks; tiny-model logits are O(1), so a few
+    bf16 ulps of them stay well under 0.05, while a layout or cast error
+    moves them by O(0.5)."""
+    over = dict(n_kv_heads=2, dtype=jnp.bfloat16)
+    jcfg = jax_config("tiny", **over)
+    tcfg = get_config("tiny", n_kv_heads=2, dtype=torch.bfloat16)
+    jmodel = JaxGPT(jcfg, decode=True, paged_pages=POOL, page_size=PS)
+    params = jmodel.init(jax.random.PRNGKey(1),
+                         jnp.zeros((1, 1), jnp.int32))["params"]
+    tree = jax.tree.map(np.asarray, nn.meta.unbox(params))
+    model = GPT(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(tree, tcfg))
+    assert model.blocks[0].attn.wq.weight.dtype == torch.float32
+    assert model.final_norm.scale.dtype == torch.float32
+
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, tcfg.vocab_size, (2, 12)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12))
+    bt = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
+    want, _ = jmodel.apply({"params": tree,
+                            "cache": jax_init_cache(jmodel, 1)},
+                           jnp.asarray(toks), jnp.asarray(pos),
+                           block_tables=jnp.asarray(bt), mutable=["cache"])
+    pools = init_decode_cache(tcfg, POOL, PS, device="cpu")
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks), torch.from_numpy(np.array(pos)),
+                    block_tables=torch.from_numpy(bt), kv_pools=pools)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-2)
