@@ -25,16 +25,24 @@ package.  Phases, one JSON line each:
               (16 x 1024, 12 heads of 64, causal, bf16), at a GQA 32/8
               head_dim-128 shape, and at fp32 / full / ragged shapes;
               kernel / plain / SDPA time beside the bound.
-  5. train    gpt-small at full width and depth with bench.py's
+  5. splash   the splash kernels K5-fwd, K5-dQ and K5-dKV in the same
+              way at the same training shape, at GQA 32/8 head_dim 128
+              (2 x 2048), with a full mask (q 512, kv 1024) and in fp32;
+              the tiles the mask table visits against the dense count.
+  6. train    gpt-small at full width and depth with bench.py's
               settings (batch 16 x 1024, remat "dots", AdamW warmup 10 /
-              decay 1000), random weights from the seed and a fixed
-              batch: one step with the plain attention and one with the
-              kernels from the same weights must agree; then 20 kernel
-              steps, whose losses must be finite and fall, and whose
-              launch counts must equal the config's (remat recomputes
-              the forward); step ms, tokens/s, MFU, peak memory, and
-              device time by kernel group.
-  6. kernels  one line listing every kernel of the port.
+              decay 1000, attention_impl "flash"), random weights from
+              the seed and a fixed batch: one step with the plain
+              attention and one with the kernels from the same weights
+              must agree; then 20 kernel steps, whose losses must be
+              finite and fall, and whose launch counts must equal the
+              config's (remat recomputes the forward) while the splash
+              counters stay at 0; step ms, tokens/s, MFU, peak memory,
+              and device time by kernel group.
+  7. splash_train  the same run with attention_impl "splash": its first
+              step against one flash step from the same weights, then
+              20 steps through K5 while the flash counters stay at 0.
+  8. kernels  one line listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -73,6 +81,16 @@ FLASH_SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = {"flash_fwd": "ray_tpu/ops/flash_attention.py:49",
                   "flash_bwd_dq": "ray_tpu/ops/flash_attention.py:127",
                   "flash_bwd_dkv": "ray_tpu/ops/flash_attention.py:167"}
+SPLASH_SOURCE = "ray_tpu_torch/csrc/splash_attention.cu"
+_SPLASH_LIB = ("jax/experimental/pallas/ops/tpu/splash_attention/"
+               "splash_attention_kernel.py")
+SPLASH_REPLACES = {
+    "splash_fwd": f"ray_tpu/ops/splash.py:19 -> {_SPLASH_LIB}:696 "
+                  "flash_attention_kernel",
+    "splash_bwd_dq": f"ray_tpu/ops/splash.py:19 -> {_SPLASH_LIB}:1307 "
+                     "_flash_attention_dq_kernel",
+    "splash_bwd_dkv": f"ray_tpu/ops/splash.py:19 -> {_SPLASH_LIB}:1669 "
+                      "_flash_attention_dkv_kernel"}
 # float32 outside the tensor cores (the flash kernels' fp32 inputs)
 FP32_FLOPS = 67e12
 # Flash kernels against their plain versions: both sum in fp32.  In bf16
@@ -449,14 +467,15 @@ def slice_phase(dev) -> tuple:
     return out, launches, real["max_abs_err"]
 
 
-def flash_bound(kind: str, q, k, causal: bool) -> dict:
-    """Least time for one flash kernel call: each input read once and
-    each output written once over HBM bandwidth, against the products'
-    flops over the peak rate of the inputs' type.  Only the (query, key)
-    pairs the mask lets through count: S(S+1)/2 per head when causal.
-    Per pair K1 does 2 products of head_dim (q.k, p.v), K2 3 (q.k, dO.v,
-    dS.k) and K3 4 (q.k, dO.v, P^T.dO, dS^T.q), 2 flops per multiply-add.
-    """
+def attn_bound(kind: str, q, k, causal: bool) -> dict:
+    """Least time for one flash or splash kernel call (``kind`` ends in
+    fwd, bwd_dq or bwd_dkv): each input read once and each output
+    written once over HBM bandwidth, against the products' flops over
+    the peak rate of the inputs' type.  Only the (query, key) pairs the
+    mask lets through count: S(S+1)/2 per head when causal.  Per pair
+    the forward does 2 products of head_dim (q.k, p.v), dQ 3 (q.k, dO.v,
+    dS.k) and dK/dV 4 (q.k, dO.v, P^T.dO, dS^T.q), 2 flops per
+    multiply-add."""
     import torch
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -466,9 +485,10 @@ def flash_bound(kind: str, q, k, causal: bool) -> dict:
     vec = b * h * sq * 4                     # lse or delta, fp32
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
     nbytes, products = {
-        "flash_fwd": (qb + kvb + qb + vec, 2),
-        "flash_bwd_dq": (qb + kvb + qb + 2 * vec + qb, 3),
-        "flash_bwd_dkv": (qb + kvb + qb + 2 * vec + kvb, 4)}[kind]
+        "fwd": (qb + kvb + qb + vec, 2),
+        "bwd_dq": (qb + kvb + qb + 2 * vec + qb, 3),
+        "bwd_dkv": (qb + kvb + qb + 2 * vec + kvb, 4),
+    }[kind.split("_", 1)[1]]
     flops = 2 * products * d * pairs
     rate = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -478,15 +498,46 @@ def flash_bound(kind: str, q, k, causal: bool) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def flash_case(dev, gen, b, sq, h, kvh, d, dtype, causal, skv=None,
-               timed: bool = False) -> dict:
-    """K1, K2 and K3 on one shape against their plain versions (and, when
-    ``timed``, kernel / plain / SDPA times beside the bounds)."""
+def kernel_fns(family: str, causal: bool, scale: float, h: int, sq: int,
+               skv: int) -> tuple:
+    """The three kernels of ``family`` ("flash" or "splash") and their
+    plain versions, each with one signature: fwd(q, k, v) -> (o, lse);
+    dq and dkv(q, k, v, do, lse, delta); ref_fwd(q, k, v); ref_dq and
+    ref_dkv(q, k, v, o, lse, do).  Splash runs the mask that
+    ops/splash.py builds for ``causal``."""
+    if family == "flash":
+        from ray_tpu_torch.ops import flash_attention as mod
+        how = causal
+
+        def cuda(fn):
+            return lambda *a: fn(*a, causal=causal, sm_scale=scale)
+    else:
+        from ray_tpu_torch.ops import splash as mod
+        how = mod.make_mask(h, sq, skv, causal)
+
+        def cuda(fn):
+            return lambda *a: fn(*a, how, sm_scale=scale)
+
+    def ref(fn):
+        return lambda *a: fn(*a, how, scale)
+
+    names = ("fwd", "bwd_dq", "bwd_dkv")
+    return (*(cuda(getattr(mod, f"{family}_{n}_cuda")) for n in names),
+            *(ref(getattr(mod, f"{family}_{n}_ref")) for n in names))
+
+
+def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
+                   skv=None, timed: bool = False) -> dict:
+    """The three flash or splash kernels on one shape against their plain
+    versions (and, when ``timed``, kernel / plain / SDPA times beside the
+    bounds)."""
     import torch
     import torch.nn.functional as F
-    from ray_tpu_torch.ops import flash_attention as fa
     skv = sq if skv is None else skv
     scale = d ** -0.5
+    fwd, dq_k, dkv_k, ref_fwd, ref_dq, ref_dkv = kernel_fns(
+        family, causal, scale, h, sq, skv)
+    kinds = [f"{family}_{n}" for n in ("fwd", "bwd_dq", "bwd_dkv")]
     tol = {} if dtype == torch.bfloat16 else dict(atol=FLASH_FP32_TOL,
                                                   rtol=FLASH_FP32_TOL)
 
@@ -500,59 +551,54 @@ def flash_case(dev, gen, b, sq, h, kvh, d, dtype, causal, skv=None,
     # calls find their inputs cold in the 50 MB L2, as a layer does
     sets = [inputs() for _ in range(2 if timed else 1)]
     q, k, v, do = sets[0]
-    o, lse = fa.flash_fwd_cuda(q, k, v, causal=causal, sm_scale=scale)
+    o, lse = fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
-                              sm_scale=scale)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
-                                   sm_scale=scale)
+    dq = dq_k(q, k, v, do, lse, delta)
+    dk, dv = dkv_k(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    o_r, lse_r = fa.flash_fwd_ref(q, k, v, causal, scale)
-    dq_r = fa.flash_bwd_dq_ref(q, k, v, o, lse, do, causal, scale)
-    dk_r, dv_r = fa.flash_bwd_dkv_ref(q, k, v, o, lse, do, causal, scale)
+    o_r, lse_r = ref_fwd(q, k, v)
+    dq_r = ref_dq(q, k, v, o, lse, do)
+    dk_r, dv_r = ref_dkv(q, k, v, o, lse, do)
     res = {"shape": [b, sq, skv, h, kvh, d], "dtype": str(dtype),
            "causal": causal,
-           "flash_fwd": {"o": compare(o, o_r, **tol),
-                         "lse": compare(lse, lse_r, atol=FLASH_FP32_TOL,
-                                        rtol=FLASH_FP32_TOL)},
-           "flash_bwd_dq": {"dq": compare(dq, dq_r, **tol)},
-           "flash_bwd_dkv": {"dk": compare(dk, dk_r, **tol),
-                             "dv": compare(dv, dv_r, **tol)}}
-    for kind in FLASH_REPLACES:
+           kinds[0]: {"o": compare(o, o_r, **tol),
+                      "lse": compare(lse, lse_r, atol=FLASH_FP32_TOL,
+                                     rtol=FLASH_FP32_TOL)},
+           kinds[1]: {"dq": compare(dq, dq_r, **tol)},
+           kinds[2]: {"dk": compare(dk, dk_r, **tol),
+                      "dv": compare(dv, dv_r, **tol)}}
+    for kind in kinds:
         for name, c in res[kind].items():
             check(c["finite"] and c["within_tol"],
                   f"{kind} {name} disagrees with the plain version at "
                   f"{res['shape']} {dtype} causal={causal}: {c}")
         res[kind]["max_abs_err"] = max(c["max_abs_err"]
                                        for c in res[kind].values())
+    if family == "splash":
+        from ray_tpu_torch.ops.splash import BLOCK, TILE, make_mask, \
+            mask_table
+        mask = make_mask(h, sq, skv, causal)
+        t, blocks = mask_table(mask, TILE), mask_table(mask, BLOCK)
+        res["tiles"] = {"tile": TILE, "visited": b * t.visited,
+                        "partial": b * t.partial, "dense": b * t.dense,
+                        "library_block": BLOCK,
+                        "library_visited": b * blocks.visited,
+                        "library_dense": b * blocks.dense}
     if not timed:
         return res
 
-    outs = [fa.flash_fwd_cuda(q_, k_, v_, causal=causal, sm_scale=scale)
-            for q_, k_, v_, _ in sets]
+    outs = [fwd(q_, k_, v_) for q_, k_, v_, _ in sets]
     bwd_sets = [(q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1)
                  .transpose(1, 2).contiguous())
                 for (q_, k_, v_, do_), (o_, lse_) in zip(sets, outs)]
     ref_bwd_sets = [(q_, k_, v_, o_, lse_, do_)
                     for (q_, k_, v_, do_), (o_, lse_) in zip(sets, outs)]
 
-    def fwd(q_, k_, v_, _):
-        return fa.flash_fwd_cuda(q_, k_, v_, causal=causal, sm_scale=scale)
+    def fwd4(q_, k_, v_, _):
+        return fwd(q_, k_, v_)
 
-    def bwd_dq(*a):
-        return fa.flash_bwd_dq_cuda(*a, causal=causal, sm_scale=scale)
-
-    def bwd_dkv(*a):
-        return fa.flash_bwd_dkv_cuda(*a, causal=causal, sm_scale=scale)
-
-    def ref_fwd(q_, k_, v_, _):
-        return fa.flash_fwd_ref(q_, k_, v_, causal, scale)
-
-    def ref_dq(*a):
-        return fa.flash_bwd_dq_ref(*a, causal, scale)
-
-    def ref_dkv(*a):
-        return fa.flash_bwd_dkv_ref(*a, causal, scale)
+    def ref_fwd4(q_, k_, v_, _):
+        return ref_fwd(q_, k_, v_)
 
     # the library yardstick: SDPA on contiguous [B, H, S, D] copies
     lib_sets = [tuple(t.transpose(1, 2).contiguous().requires_grad_()
@@ -574,17 +620,16 @@ def flash_case(dev, gen, b, sq, h, kvh, d, dtype, causal, skv=None,
         lib_fwd = time_ms(sdpa, lib_sets)[0]
     lib_bwd = time_ms(sdpa_bwd, [(0,), (1,)])[0]
     for kind, fn, ref, args, ref_args, lib in (
-            ("flash_fwd", fwd, ref_fwd, sets, sets, lib_fwd),
-            ("flash_bwd_dq", bwd_dq, ref_dq, bwd_sets, ref_bwd_sets,
-             lib_bwd),
-            ("flash_bwd_dkv", bwd_dkv, ref_dkv, bwd_sets, ref_bwd_sets,
-             lib_bwd)):
+            (kinds[0], fwd4, ref_fwd4, sets, sets, lib_fwd),
+            (kinds[1], dq_k, ref_dq, bwd_sets, ref_bwd_sets, lib_bwd),
+            (kinds[2], dkv_k, ref_dkv, bwd_sets, ref_bwd_sets, lib_bwd)):
         ms, host_ms = time_ms(fn, args)
         res[kind].update(ms=ms, host_ms=host_ms,
                          plain_ms=time_ms(ref, ref_args, reps=2)[0],
-                         library_ms=lib, **flash_bound(kind, q, k, causal))
-    res["library_note"] = ("SDPA forward for K1; SDPA backward (dq, dk and "
-                           "dv together) for K2 and K3")
+                         library_ms=lib, **attn_bound(kind, q, k, causal))
+    res["library_note"] = ("SDPA forward for the forward kernel; SDPA "
+                           "backward (dq, dk and dv together) for the dQ "
+                           "and dK/dV kernels")
     return res
 
 
@@ -595,9 +640,9 @@ def flash_phase(dev) -> dict:
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16, fp32 = torch.bfloat16, torch.float32
-    at_slice = flash_case(dev, gen, 16, 1024, 12, 12, 64, bf16, True,
-                          timed=True)
-    coverage = [flash_case(dev, gen, *c) for c in (
+    at_slice = attention_case(dev, gen, "flash", 16, 1024, 12, 12, 64, bf16,
+                              True, timed=True)
+    coverage = [attention_case(dev, gen, "flash", *c) for c in (
         (2, 2000, 32, 8, 128, bf16, True),
         (2, 200, 4, 2, 64, fp32, False, 137),
         (2, 130, 4, 2, 128, fp32, True),
@@ -605,21 +650,40 @@ def flash_phase(dev) -> dict:
     return {"slice_shape": at_slice, "coverage": coverage}
 
 
-def train_phase(dev, name: str = "gpt-small", batch: int = 16,
-                seq: int = 1024, steps: int = TRAIN_STEPS) -> dict:
-    """bench.py's headline run on the port: make_train over GPT at full
-    width and depth, the dense lm_loss_fn head, one fixed batch."""
+def splash_phase(dev) -> dict:
+    """The splash kernels (K5) at the training slice's shapes (timed), at
+    a GQA 32/8 head_dim-128 shape, with a full mask and q_len != kv_len,
+    and in fp32; with the tiles the mask table visits."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    at_slice = attention_case(dev, gen, "splash", 16, 1024, 12, 12, 64,
+                              bf16, True, timed=True)
+    coverage = [attention_case(dev, gen, "splash", *c) for c in (
+        (2, 2048, 32, 8, 128, bf16, True),
+        (2, 512, 8, 8, 64, bf16, False, 1024),
+        (2, 256, 4, 4, 64, fp32, True))]
+    return {"slice_shape": at_slice, "coverage": coverage}
+
+
+def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
+                name: str = "gpt-small", batch: int = 16, seq: int = 1024,
+                steps: int = TRAIN_STEPS) -> dict:
+    """bench.py's headline run on the port with ``attention_impl=impl``:
+    make_train over GPT at full width and depth, the dense lm_loss_fn
+    head, one fixed batch.  Its first step must agree with one step of
+    ``ref_impl`` from the same weights and batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ray_tpu_torch.models.configs import get_config
     from ray_tpu_torch.models.convert import init_weights
     from ray_tpu_torch.models.gpt import GPT
-    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import flash_attention, splash
     from ray_tpu_torch.train.step import OptimizerConfig, make_train
 
     over = dict(max_seq_len=seq, remat=True)
-    cfg = get_config(name, attention_impl="flash", **over)
+    cfg = get_config(name, attention_impl=impl, **over)
     opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -628,33 +692,37 @@ def train_phase(dev, name: str = "gpt-small", batch: int = 16,
     model = GPT(cfg, device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
 
-    # one step of the plain attention from the same weights
-    plain = GPT(get_config(name, attention_impl="xla", **over), device=dev)
-    plain.load_state_dict(model.state_dict())
-    init_p, step_p = make_train(plain, opt)
-    _, mp = step_p(init_p(), data)
-    plain_m = {k: float(v) for k, v in mp.items()}
-    del plain, init_p, step_p, mp
+    # one step of the reference attention from the same weights
+    ref = GPT(get_config(name, attention_impl=ref_impl, **over), device=dev)
+    ref.load_state_dict(model.state_dict())
+    init_r, step_r = make_train(ref, opt)
+    _, mr = step_r(init_r(), data)
+    ref_m = {k: float(v) for k, v in mr.items()}
+    del ref, init_r, step_r, mr
     torch.cuda.empty_cache()
 
     init_fn, step_fn = make_train(model, opt)
     state = init_fn()
     state, m1 = step_fn(state, data)
     first = {k: float(v) for k, v in m1.items()}
-    parity = {"plain": plain_m, "flash": first,
-              "loss_rel": abs(first["loss"] - plain_m["loss"])
-              / abs(plain_m["loss"]),
-              "grad_norm_rel": abs(first["grad_norm"] - plain_m["grad_norm"])
-              / abs(plain_m["grad_norm"])}
+    parity = {"reference": ref_impl, ref_impl: ref_m, impl: first,
+              "loss_rel": abs(first["loss"] - ref_m["loss"])
+              / abs(ref_m["loss"]),
+              "grad_norm_rel": abs(first["grad_norm"] - ref_m["grad_norm"])
+              / abs(ref_m["grad_norm"])}
     check(parity["loss_rel"] <= LOSS_RTOL
           and parity["grad_norm_rel"] <= GRAD_NORM_RTOL,
-          f"the kernel step disagrees with the plain step: {parity}")
+          f"the {impl} step disagrees with the {ref_impl} step: {parity}")
 
-    kernels = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
-               fa.flash_bwd_dkv_cuda)
+    # every attention kernel's counter: those of the other family must
+    # stay at 0 through the run
+    kernels = {f"{fam}_{n}": getattr(mod, f"{fam}_{n}_cuda")
+               for fam, mod in (("flash", flash_attention),
+                                ("splash", splash))
+               for n in ("fwd", "bwd_dq", "bwd_dkv")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for kfn in kernels:
+    for kfn in kernels.values():
         kfn.launches = 0
     metrics = []
     t0 = time.perf_counter()
@@ -663,15 +731,16 @@ def train_phase(dev, name: str = "gpt-small", batch: int = 16,
         metrics.append(m)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kfn.__name__.removesuffix("_cuda"): kfn.launches
-                for kfn in kernels}
+    launches = {n: kfn.launches for n, kfn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
 
     L = cfg.n_layers
-    expected = {"flash_fwd": steps * L * (2 if cfg.remat else 1),
-                "flash_bwd_dq": steps * L, "flash_bwd_dkv": steps * L}
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({f"{impl}_fwd": steps * L * (2 if cfg.remat else 1),
+                     f"{impl}_bwd_dq": steps * L,
+                     f"{impl}_bwd_dkv": steps * L})
     check(launches == expected,
           f"kernel launches {launches} != expected {expected} "
           f"({steps} steps x {L} layers, remat recomputes the forward)")
@@ -683,15 +752,15 @@ def train_phase(dev, name: str = "gpt-small", batch: int = 16,
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, _ = step_fn(state, data)
         torch.cuda.synchronize()
-    groups = {"flash": 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+    groups = {impl: 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
     events = sorted(prof.key_averages(),
                     key=lambda e: -e.self_device_time_total)
     top = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
            for e in events[:15]]
     for e in events:
         key = e.key.lower()
-        if "flash_" in key:
-            group = "flash"
+        if f"{impl}_" in key:
+            group = impl
         elif "nvjet" in key or "gemm" in key or "splitk" in key \
                 or "cutlass" in key:
             group = "gemm"
@@ -704,7 +773,8 @@ def train_phase(dev, name: str = "gpt-small", batch: int = 16,
     step_s = wall / steps
     tokens_s = batch * seq / step_s
     flops_per_token = 6 * cfg.num_params() + 12 * L * cfg.d_model * seq
-    return {"model": name, "params": cfg.num_params(), "n_layers": L,
+    return {"model": name, "attention_impl": impl,
+            "params": cfg.num_params(), "n_layers": L,
             "d_model": cfg.d_model, "n_heads": cfg.n_heads,
             "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
             "remat_policy": cfg.remat_policy, "steps": steps,
@@ -733,7 +803,7 @@ def main() -> int:
     print(smi, flush=True)
 
     from ray_tpu_torch.ops import _build
-    libs = ("paged_attention", "flash_attention")
+    libs = ("paged_attention", "flash_attention", "splash_attention")
     t0 = time.perf_counter()
     _build.build(libs)
     build_s = time.perf_counter() - t0
@@ -762,8 +832,16 @@ def main() -> int:
     emit({"phase": "flash", **flash})
     torch.cuda.empty_cache()
 
+    splash = splash_phase(dev)
+    emit({"phase": "splash", **splash})
+    torch.cuda.empty_cache()
+
     train = train_phase(dev)
     emit({"phase": "train", **train})
+    torch.cuda.empty_cache()
+
+    splash_train = train_phase(dev, impl="splash", ref_impl="flash")
+    emit({"phase": "splash_train", **splash_train})
 
     rows = [{
         "name": "paged_attention", "route": "cuda",
@@ -774,23 +852,27 @@ def main() -> int:
         "ms": kern["kernel_ms"], "plain_ms": kern["ref_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"]}]
-    at_slice = flash["slice_shape"]
-    for kind, replaces in FLASH_REPLACES.items():
-        r = at_slice[kind]
-        rows.append({
-            "name": kind, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": replaces, "launches": train["launches"][kind],
-            "max_abs_err": max([r["max_abs_err"]] + [
-                c[kind]["max_abs_err"] for c in flash["coverage"]]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+    for phase, run, source, replaced in (
+            (flash, train, FLASH_SOURCE, FLASH_REPLACES),
+            (splash, splash_train, SPLASH_SOURCE, SPLASH_REPLACES)):
+        at_slice = phase["slice_shape"]
+        for kind, replaces in replaced.items():
+            r = at_slice[kind]
+            rows.append({
+                "name": kind, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": run["launches"][kind],
+                "max_abs_err": max([r["max_abs_err"]] + [
+                    c[kind]["max_abs_err"] for c in phase["coverage"]]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
     kernels = {"kernels": rows}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "kernel": kern, "slice": sl, "flash": flash,
-         "train": train, **kernels}, indent=1))
+         "splash": splash, "train": train, "splash_train": splash_train,
+         **kernels}, indent=1))
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,519 @@
+// Splash attention for Hopper (sm_90a): kernel K5, block-sparse attention
+// driven by a mask table, as three kernels on [B, S, heads, head_dim]
+// tensors read through their strides, with grouped-query heads
+// (kv_head = h / g).
+//
+// They replace the TPU kernels that ray_tpu/ops/splash.py:19 reaches through
+// JAX's make_splash_mha (jax/experimental/pallas/ops/tpu/splash_attention/
+// splash_attention_kernel.py) and compute the same functions:
+//
+//   K5-fwd  flash_attention_kernel       O = softmax(q_s.K^T) V in fp32 and
+//                                        LSE = m + log(l)
+//   K5-dQ   _flash_attention_dq_kernel   P = exp(s - LSE),
+//                                        dS = (dO.V^T - delta) o P,
+//                                        dQ = round(round(dS) K) * scale
+//   K5-dKV  _flash_attention_dkv_kernel  dV = round(P)^T dO and
+//                                        dK = round(dS)^T q_s, summed over
+//                                        the g query heads of a kv head
+//
+// where q_s = round(q * scale) is q scaled in its own dtype (scale already
+// rounded to that dtype by the caller), round() rounds to the input dtype
+// (a no-op for fp32), masked scores are -0.7 * FLT_MAX, and
+// delta = rowsum(dO o O) is computed outside the kernels, as the JAX
+// package does.
+//
+// The mask table.  The caller reduces the mask to 64 x 64 tiles on the
+// host: for each unique head mask u and q tile, the ordered list of its
+// non-empty kv tiles (`ptr`/`ent` for K5-fwd and K5-dQ), and for each kv
+// tile the transposed list of q tiles (for K5-dKV).  An entry is
+// (tile << 1) | partial.  A block walks its list and nothing else: empty
+// tiles are never visited, full tiles take no element mask, and partial
+// tiles apply the causal rule (key <= query) from the tile's positions, the
+// only rule of the masks the port builds (CausalMask; FullMask has no
+// partial tiles).  At S = 1024 causal that is 136 of 256 tiles, 16 partial.
+//
+// What bounds them on this card: operations.  At the training shapes
+// (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
+// against a few bytes, far above the ~295 flops per byte where the tensor
+// cores, not the memory, become the limit.  These first versions are
+// simple and right, not fast: the products run as fp32 FMAs on the CUDA
+// cores from shared memory, as K1-K3 do (csrc/flash_attention.cu), and P
+// stays fp32 for P.V, which the library also keeps in fp32.  The design:
+//   - a thread block holds 64 x 64 fp32 tiles in shared memory (rows padded
+//     by one word against bank conflicts), and a loop over the block's
+//     table entries replaces the TPU's sequential grid dimension, which
+//     the library walks with its own skip tables (data_next, mask_next);
+//   - K5-fwd and K5-dQ run one block per (batch, head, q tile), the last q
+//     tile (the longest causal list) first; K5-dKV runs one block per
+//     (batch, kv head, kv tile) and walks the lists of the g query heads
+//     of its group, so dK and dV are written once, with no atomics;
+//   - a 16 x 16 grid of threads gives each thread a 4 x 4 patch of every
+//     score tile and 4 rows x head_dim / 16 columns of each accumulator;
+//     row maxima and sums reduce with shuffles inside 16-lane groups;
+//   - q_len and kv_len are multiples of 64 (the library's 128-row blocks),
+//     so there is no ragged edge.
+// Left for later: tensor-core tiles for the bf16 products, TMA loads, a
+// pipelined ring of tiles.
+//
+// Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
+// input dtype, and LSE is fp32 [B, heads, Sq].
+//
+// Plain C interface, loaded with ctypes (ray_tpu_torch/ops/_build.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <float.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kTile = 64;                  // rows of a q tile and a kv tile
+constexpr int kThreads = 256;              // a 16 x 16 grid of threads
+constexpr int kLP = kTile + 1;             // padded row of a [64, 64] tile
+// the library's mask value, -0.7 * FLT_MAX in double as Python computes it
+constexpr float kMask =
+    static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+
+struct Params {
+  const void* q;        // [B, Sq, H, D], strided, last dim contiguous
+  const void* k;        // [B, Skv, KVH, D], strided
+  const void* v;        // [B, Skv, KVH, D], strided
+  const void* dout;     // [B, Sq, H, D] contiguous (K5-dQ, K5-dKV)
+  void* out;            // K5-fwd: o, K5-dQ: dq [B, Sq, H, D] contiguous
+  void* dk;             // K5-dKV: [B, Skv, KVH, D] contiguous
+  void* dv;             // K5-dKV: [B, Skv, KVH, D] contiguous
+  float* lse;           // [B, H, Sq]: written by K5-fwd, read by the others
+  const float* delta;   // [B, H, Sq]
+  const int* head_map;  // [H]: the unique mask of each head
+  const int* ptr;       // [U, tiles + 1]: offsets of each tile's list
+  const int* ent;       // entries: (tile << 1) | partial
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  int B, H, KVH, Sq, Skv;
+  float scale;          // sm_scale, rounded to the input dtype
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T and back: what a value of dtype T holds
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// max and sum over the 16 lanes that hold one row of a score tile
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Stage rows [row0, row0 + 64) of one head (src points at its row 0) as
+// fp32 in a [64, D + 1] tile, each value times `mul` rounded to T (with
+// mul = 1 the value itself; with the scale, q scaled in its own dtype).
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long row_stride, int row0,
+                                          float mul) {
+  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    dst[r * (D + 1) + c] =
+        round_to<T>(to_f(src[(row0 + r) * row_stride + c]) * mul);
+  }
+}
+
+// s[i][j] = sum_d A[ty*4 + i][d] * Bm[tx + 16 j][d] over [64, D + 1] tiles
+template <int D>
+__device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
+                                      float (&s)[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c P[ty*4 + i][c] * Bm[c][tx + 16 j]; P is [64, 65],
+// Bm [64, D + 1]
+template <int D>
+__device__ __forceinline__ void mm_nn(const float* P, const float* Bm,
+                                      float (&acc)[4][D / 16]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int c = 0; c < kTile; ++c) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * kLP + c];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const float b = Bm[c * (D + 1) + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], b, acc[i][j]);
+    }
+  }
+}
+
+// K5-fwd: grid (B * H, q tiles), the last q tile first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;
+  const int q0 = qt * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int* list = p.ptr + p.head_map[h] * (nq + 1) + qt;
+  const int e0 = list[0], e1 = list[1];
+
+  load_tile<T, D>(Qs, q, p.q_ss, q0, p.scale);
+  float m[4], l[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kMask;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  }
+  for (int e = e0; e < e1; ++e) {
+    const int ent = p.ent[e];
+    const int k0 = (ent >> 1) * kTile;
+    const bool partial = ent & 1;
+    __syncthreads();   // the last tile's reads are done
+    load_tile<T, D>(Ks, k, p.k_ss, k0, 1.f);
+    load_tile<T, D>(Vs, v, p.v_ss, k0, 1.f);
+    __syncthreads();
+    float s[4][4];
+    mm_nt<D>(Qs, Ks, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      float mx = kMask;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (partial && k0 + tx + 16 * j > row) s[i][j] = kMask;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+        Ps[(ty * 4 + i) * kLP + tx + 16 * j] = s[i][j];
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    mm_nn<D>(Ps, Vs, acc);
+  }
+  T* o = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const long long base =
+        ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      o[base + tx + 16 * j] = from_f<T>(acc[i][j] / l_safe);
+    if (tx == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+          m[i] + logf(l_safe);
+  }
+}
+
+// K5-dQ: grid (B * H, q tiles), the last q tile first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* dSs = Vs + kTile * LD;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;
+  const int q0 = qt * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const T* dout = static_cast<const T*>(p.dout) +
+                  (static_cast<long long>(b) * p.Sq * p.H + h) * D;
+  const long long vec = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  const int* list = p.ptr + p.head_map[h] * (nq + 1) + qt;
+  const int e0 = list[0], e1 = list[1];
+
+  load_tile<T, D>(Qs, q, p.q_ss, q0, p.scale);
+  load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, 1.f);
+  float lse[4], delta[4], acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    lse[i] = p.lse[vec + row];
+    delta[i] = p.delta[vec + row];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+  }
+  for (int e = e0; e < e1; ++e) {
+    const int ent = p.ent[e];
+    const int k0 = (ent >> 1) * kTile;
+    const bool partial = ent & 1;
+    __syncthreads();
+    load_tile<T, D>(Ks, k, p.k_ss, k0, 1.f);
+    load_tile<T, D>(Vs, v, p.v_ss, k0, 1.f);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    mm_nt<D>(Qs, Ks, s);
+    mm_nt<D>(dOs, Vs, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool masked = partial && k0 + tx + 16 * j > row;
+        const float pr = masked ? 0.f : expf(s[i][j] - lse[i]);
+        dSs[(ty * 4 + i) * kLP + tx + 16 * j] =
+            round_to<T>((dp[i][j] - delta[i]) * pr);
+      }
+    }
+    __syncthreads();
+    mm_nn<D>(dSs, Ks, acc);
+  }
+  T* dq = static_cast<T*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const long long base =
+        ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      dq[base + tx + 16 * j] = from_f<T>(round_to<T>(acc[i][j]) * p.scale);
+  }
+}
+
+// K5-dKV: grid (B * KVH, kv tiles), the first kv tile (the longest causal
+// list) first.  Tiles are transposed against K5-dQ: a thread's patch rows
+// are keys and its columns queries.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ps = dOs + kTile * LD;     // round(P)^T [key][query]
+  float* dSs = Ps + kTile * kLP;    // round(dS)^T [key][query]
+  const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
+  const int g = p.H / p.KVH;
+  const int nkv = gridDim.y;
+  const int kt = blockIdx.y;
+  const int k0 = kt * kTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  load_tile<T, D>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
+                  p.k_ss, k0, 1.f);
+  load_tile<T, D>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
+                  p.v_ss, k0, 1.f);
+  float acc_k[4][D / 16], acc_v[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  for (int gi = 0; gi < g; ++gi) {
+    const int h = kvh * g + gi;
+    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dout = static_cast<const T*>(p.dout) +
+                    (static_cast<long long>(b) * p.Sq * p.H + h) * D;
+    const long long vec = (static_cast<long long>(b) * p.H + h) * p.Sq;
+    const int* list = p.ptr + p.head_map[h] * (nkv + 1) + kt;
+    const int e0 = list[0], e1 = list[1];
+    for (int e = e0; e < e1; ++e) {
+      const int ent = p.ent[e];
+      const int q0 = (ent >> 1) * kTile;
+      const bool partial = ent & 1;
+      __syncthreads();
+      load_tile<T, D>(Qs, q, p.q_ss, q0, p.scale);
+      load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, 1.f);
+      __syncthreads();
+      float st[4][4], dpt[4][4];
+      mm_nt<D>(Ks, Qs, st);
+      mm_nt<D>(Vs, dOs, dpt);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qrow = q0 + tx + 16 * j;
+        const float lse = p.lse[vec + qrow];
+        const float delta = p.delta[vec + qrow];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool masked = partial && k0 + ty * 4 + i > qrow;
+          const float pr = masked ? 0.f : expf(st[i][j] - lse);
+          Ps[(ty * 4 + i) * kLP + tx + 16 * j] = round_to<T>(pr);
+          dSs[(ty * 4 + i) * kLP + tx + 16 * j] =
+              round_to<T>((dpt[i][j] - delta) * pr);
+        }
+      }
+      __syncthreads();
+      mm_nn<D>(Ps, dOs, acc_v);
+      mm_nn<D>(dSs, Qs, acc_k);   // q is pre-scaled, so dK is exact
+    }
+  }
+  T* dk = static_cast<T*>(p.dk);
+  T* dv = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty * 4 + i;
+    const long long base =
+        ((static_cast<long long>(b) * p.Skv + row) * p.KVH + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      dk[base + tx + 16 * j] = from_f<T>(acc_k[i][j]);
+      dv[base + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+    }
+  }
+}
+
+size_t smem_bytes(int kind, int d) {
+  const size_t tile = static_cast<size_t>(kTile) * (d + 1);
+  const size_t score = static_cast<size_t>(kTile) * kLP;
+  switch (kind) {
+    case kFwd: return (3 * tile + score) * sizeof(float);
+    case kDq: return (4 * tile + score) * sizeof(float);
+    case kDkv: return (4 * tile + 2 * score) * sizeof(float);
+  }
+  return 0;
+}
+
+template <typename T, int D>
+cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
+  void (*fn)(Params);
+  dim3 grid;
+  if (kind == kFwd) {
+    fn = splash_fwd_kernel<T, D>;
+    grid = dim3(p.B * p.H, p.Sq / kTile);
+  } else if (kind == kDq) {
+    fn = splash_bwd_dq_kernel<T, D>;
+    grid = dim3(p.B * p.H, p.Sq / kTile);
+  } else {
+    fn = splash_bwd_dkv_kernel<T, D>;
+    grid = dim3(p.B * p.KVH, p.Skv / kTile);
+  }
+  const size_t smem = smem_bytes(kind, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fn<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block of `kind` (0 K5-fwd, 1 K5-dQ, 2 K5-dKV)
+// needs at head_dim hd; the wrapper refuses shapes whose need exceeds the
+// card's per-block limit.
+size_t rt_splash_smem_bytes(int kind, int hd) { return smem_bytes(kind, hd); }
+
+// One launch of K5-fwd (kind 0), K5-dQ (kind 1) or K5-dKV (kind 2).  dtype 0
+// is fp32, 1 is bf16, for q, k, v, dout and the outputs alike.  strides
+// holds the (batch, seq, head) strides in elements of q, k and v, in that
+// order; their head_dim stride is 1.  dout, out, dk and dv are contiguous;
+// lse and delta are fp32 [B, H, Sq].  head_map, ptr and ent are the mask
+// table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
+// the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
+// rounded to the input dtype.  Pointers a kind does not use may be null.
+// Returns the cudaError_t of the launch.
+int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
+                        const void* v, const void* dout, void* out, void* dk,
+                        void* dv, void* lse, const void* delta,
+                        const void* head_map, const void* ptr,
+                        const void* ent, const long long* strides, int B,
+                        int H, int KVH, int Sq, int Skv, int hd, float scale,
+                        void* stream) {
+  if (kind < kFwd || kind > kDkv || B < 1 || KVH < 1 || H % KVH != 0 ||
+      Sq < kTile || Skv < kTile || Sq % kTile != 0 || Skv % kTile != 0)
+    return cudaErrorInvalidValue;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.out = out;
+  p.dk = dk;
+  p.dv = dv;
+  p.lse = static_cast<float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.head_map = static_cast<const int*>(head_map);
+  p.ptr = static_cast<const int*>(ptr);
+  p.ent = static_cast<const int*>(ent);
+  p.q_sb = strides[0];
+  p.q_ss = strides[1];
+  p.q_sh = strides[2];
+  p.k_sb = strides[3];
+  p.k_ss = strides[4];
+  p.k_sh = strides[5];
+  p.v_sb = strides[6];
+  p.v_ss = strides[7];
+  p.v_sh = strides[8];
+  p.B = B;
+  p.H = H;
+  p.KVH = KVH;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 64) return run<float, 64>(kind, p, st);
+  if (dtype == 0 && hd == 128) return run<float, 128>(kind, p, st);
+  if (dtype == 1 && hd == 64) return run<__nv_bfloat16, 64>(kind, p, st);
+  if (dtype == 1 && hd == 128) return run<__nv_bfloat16, 128>(kind, p, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -6,9 +6,13 @@ ray_tpu/ops/attention.py).
                   runs everywhere, materialises [Sq, Skv].
   - ``"flash"`` — ``ops/flash_attention.py``: the hand-written CUDA kernels
                   on CUDA tensors, their plain versions on CPU tensors.
+  - ``"splash"`` — ``ops/splash.py``: block-sparse attention driven by a
+                  mask table (kernel K5, the counterpart of JAX's splash
+                  library kernel); its plain versions on CPU tensors.
+                  Lengths must be multiples of 128.
   - ``"auto"``  — flash for CUDA tensors, ``dense_attention`` for CPU ones.
-  - ``"splash"``, ``"ring"``, ``"ulysses"`` — not ported yet; they raise
-    and name their ROADMAP items.
+  - ``"ring"``, ``"ulysses"`` — not ported yet; they raise and name their
+    ROADMAP items.
 
 Layout as in the JAX package: ``q`` [batch, q_len, heads, head_dim];
 ``k``/``v`` [batch, kv_len, kv_heads, head_dim], grouped-query when
@@ -24,8 +28,6 @@ import torch
 NEG_INF = -1e30
 
 _UNPORTED = {
-    "splash": "splash attention (kernel K5) is not ported yet: ROADMAP.md "
-              "Queue 2",
     "ring": "ring attention is not ported yet: ROADMAP.md Queue 1 item 4 "
             "(long context)",
     "ulysses": "ulysses attention is not ported yet: ROADMAP.md Queue 1 "
@@ -88,8 +90,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention entry point (see the module docstring).  A ``mask`` sends
     flash and splash calls to ``dense_attention``, as in the JAX package:
-    the kernels have no padding-mask path.  The flash kernels take
-    grouped-query heads as they are, with no ``repeat_kv`` copy."""
+    the kernels have no padding-mask path.  The flash and splash kernels
+    take grouped-query heads as they are, with no ``repeat_kv`` copy."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "xla"
     if impl in ("flash", "splash") and mask is not None:
@@ -99,6 +101,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl == "flash":
         from ray_tpu_torch.ops.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    if impl == "splash":
+        from ray_tpu_torch.ops.splash import splash_attention
+        return splash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     if impl == "xla":
         return dense_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                mask=mask)

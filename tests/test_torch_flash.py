@@ -119,7 +119,7 @@ def test_dispatcher_rules():
         torch.testing.assert_close(
             attention(q, k, v, causal=False, impl=impl, mask=mask), want,
             rtol=0, atol=0)
-    for impl in ("splash", "ring", "ulysses"):
+    for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attention(q, k, v, impl=impl)
     with pytest.raises(ValueError):

@@ -127,13 +127,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         LLMEngine(cfg, {})
 
 
-@pytest.mark.parametrize("path", ["splash", "adafactor", "slot_decode"])
+@pytest.mark.parametrize("path", ["ring", "adafactor", "slot_decode"])
 def test_unported_paths_raise_and_name_the_roadmap(path):
     cfg = get_config("tiny")
     tokens = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "splash":
-            GPT(get_config("tiny", attention_impl="splash"),
+        if path == "ring":
+            GPT(get_config("tiny", attention_impl="ring"),
                 device="cpu")(tokens)
         elif path == "adafactor":
             OptimizerConfig(optimizer="adafactor").make()

@@ -1,0 +1,252 @@
+"""The port's splash attention (ray_tpu_torch.ops.splash) held against
+ray_tpu's on the same numpy inputs, on the CPU.  Here the autograd
+function runs the kernels' plain versions; the JAX side runs JAX's
+splash library kernel in interpret mode (``make_splash_mha`` patched to
+``interpret=True``), which leaves the JAX package's files as they are.
+
+Tolerances are those of the flash tests.  fp32: forward atol 2e-5 and
+gradients atol 2e-4; both sides compute in fp32, and the gap is
+summation order (the library's blockwise online softmax against dense
+scores) over <= 256 keys of O(1) logits, ~1e-6.  bf16: atol 2e-2 for
+the output and the gradients (which reach ~11 here); both sides round
+q * scale, the scale itself, the output, P and dS to bf16 at the same
+places and sum in fp32, so they differ by summation order only: 4e-3 at
+most.  A port that skips any one of those roundings is off by 3e-2 to
+6e-2.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas.ops.tpu.splash_attention import (
+    splash_attention_kernel)
+
+from ray_tpu.models.configs import get_config as jax_config
+from ray_tpu.models.gpt import GPT as JaxGPT
+from ray_tpu.ops.attention import attention as jax_attention
+from ray_tpu.parallel import MeshConfig, build_mesh
+from ray_tpu.train.step import OptimizerConfig as JaxOptimizerConfig
+from ray_tpu.train.step import make_sharded_train
+from ray_tpu_torch.models.configs import get_config
+from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.gpt import GPT
+from ray_tpu_torch.ops import splash
+from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.train.step import OptimizerConfig, make_train
+
+FWD_ATOL = 2e-5
+GRAD_ATOL = 2e-4
+BF16_TOL = 2e-2
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """JAX's splash library kernel in interpret mode, for the CPU."""
+    monkeypatch.setattr(
+        splash_attention_kernel, "make_splash_mha",
+        functools.partial(splash_attention_kernel.make_splash_mha,
+                          interpret=True))
+
+
+def _qkv(seed, b, s, h, kvh, d, skv=None):
+    rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
+    return (rng.standard_normal((b, s, h, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, skv, kvh, d)).astype(np.float32))
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,skv,causal,dtype", [
+    (2, 256, 4, 4, 64, 256, True, "float32"),
+    (1, 256, 4, 2, 64, 256, True, "float32"),
+    (1, 128, 2, 2, 64, 256, False, "float32"),
+    (1, 128, 2, 2, 128, 128, True, "bfloat16")],
+    ids=["causal", "gqa", "full", "bf16_hd128"])
+def test_splash_matches_jax_splash_fwd_bwd(interpret, b, s, h, kvh, d, skv,
+                                           causal, dtype):
+    """Forward and the gradients of sum(o^2) (cotangent 2o on both
+    sides).  At head_dim 128 in bf16 q * scale rounds, and dq is the
+    kernel's gradient times the scale in bf16."""
+    q, k, v = _qkv(0, b, s, h, kvh, d, skv)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(x, jdt) for x in (q, k, v)]
+    want, vjp = jax.vjp(
+        lambda *a: jax_attention(*a, causal=causal, impl="splash"), *jargs)
+    want_g = vjp(2 * want)
+    targs = [torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    got = attention(*targs, causal=causal, impl="splash")
+    got.backward(2 * got.detach())
+    assert got.dtype == tdt and got.shape == (b, s, h, d)
+    if dtype == "float32":
+        tol, gtol = dict(atol=FWD_ATOL), dict(atol=GRAD_ATOL)
+    else:
+        tol = gtol = dict(atol=BF16_TOL)
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    for t, g in zip(targs, want_g):
+        assert t.grad.shape == g.shape
+        np.testing.assert_allclose(_f32(t.grad), _f32(g), **gtol)
+
+
+def _reduce(dense: np.ndarray, tile: int) -> np.ndarray:
+    """A dense [q, kv] bool mask reduced to tile kinds."""
+    q, kv = dense.shape
+    blk = dense.reshape(q // tile, tile, kv // tile, tile)
+    return np.where(blk.all(axis=(1, 3)), splash.FULL,
+                    np.where(blk.any(axis=(1, 3)), splash.PARTIAL,
+                             splash.EMPTY))
+
+
+def _decode(ptr, ent, n):
+    """The [rows, n] kind grid that CSR lists describe."""
+    grid = np.zeros((len(ptr) - 1, n), np.int8)
+    for r in range(len(ptr) - 1):
+        cols = ent[ptr[r]:ptr[r + 1]]
+        assert np.all(np.diff(cols >> 1) > 0)       # in order
+        grid[r, cols >> 1] = np.where(cols & 1, splash.PARTIAL, splash.FULL)
+    return grid
+
+
+def test_mask_table_against_the_dense_mask():
+    """Causal 1024 at tile 128: 36 non-empty tiles of 64, 8 partial; full:
+    64, all full; at the kernels' tile 64: 136 of 256, 16 partial.  The
+    dK/dV lists are the transpose.  Equal head masks share one entry."""
+    causal = splash.CausalMask((1024, 1024))
+    full = splash.FullMask((1024, 1024))
+    dense_causal = np.tril(np.ones((1024, 1024), bool))
+    for m, dense in ((causal, dense_causal),
+                     (full, np.ones((1024, 1024), bool))):
+        for tile in (128, splash.TILE):
+            kinds = splash.tile_kinds(m, tile)
+            np.testing.assert_array_equal(kinds, _reduce(dense, tile))
+    t = splash.mask_table(splash.MultiHeadMask([causal]), 128)
+    assert (t.visited, t.partial, t.dense) == (36, 8, 64)
+    t = splash.mask_table(splash.MultiHeadMask([full]), 128)
+    assert (t.visited, t.partial, t.dense) == (64, 0, 64)
+    t = splash.mask_table(splash.make_mask(12, 1024, 1024, True))
+    assert (t.visited, t.partial, t.dense) == (12 * 136, 12 * 16, 12 * 256)
+
+    mh = splash.MultiHeadMask([causal, full, causal])
+    t = splash.mask_table(mh, 128)
+    np.testing.assert_array_equal(t.head_map, [0, 1, 0])
+    assert len(t.kinds) == 2
+    assert (t.visited, t.partial) == (36 + 64 + 36, 16)
+    for u, dense in enumerate((dense_causal, np.ones((1024, 1024), bool))):
+        want = _reduce(dense, 128)
+        np.testing.assert_array_equal(
+            _decode(t.row_ptr[u], t.row_ent, 8), want)
+        np.testing.assert_array_equal(
+            _decode(t.col_ptr[u], t.col_ent, 8), want.T)
+    assert splash.mask_table(splash.MultiHeadMask([causal, full, causal]),
+                             128) is t           # built once, then cached
+
+
+def test_both_packages_refuse_the_same_shapes(interpret):
+    q, k, v = _qkv(1, 1, 128, 2, 2, 64, skv=256)
+    with pytest.raises(ValueError, match="q_len == kv_len"):
+        jax_attention(q, k, v, causal=True, impl="splash")
+    with pytest.raises(ValueError, match="q_len == kv_len"):
+        attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                  impl="splash")
+    q, k, v = _qkv(2, 1, 64, 2, 2, 64)
+    with pytest.raises(ValueError, match="should divide q_seq_len=64"):
+        jax_attention(q, k, v, causal=True, impl="splash")
+    with pytest.raises(ValueError, match="should divide q_seq_len=64"):
+        attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                  impl="splash")
+    q, k, v = _qkv(3, 1, 128, 2, 2, 64, skv=192)
+    with pytest.raises(ValueError, match="should divide kv_seq_len=192"):
+        jax_attention(q, k, v, causal=False, impl="splash")
+    with pytest.raises(ValueError, match="should divide kv_seq_len=192"):
+        attention(*map(torch.from_numpy, (q, k, v)), causal=False,
+                  impl="splash")
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 128, 2, 2, 64))
+    mask = splash.make_mask(2, 128, 128, True)
+    lse = torch.zeros(1, 2, 128)
+    launchers = (splash.splash_fwd_cuda, splash.splash_bwd_dq_cuda,
+                 splash.splash_bwd_dkv_cuda)
+    before = [fn.launches for fn in launchers]
+    with pytest.raises(ValueError, match="CUDA"):
+        splash.splash_fwd_cuda(q, k, v, mask, sm_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        splash.splash_bwd_dq_cuda(q, k, v, q, lse, lse, mask, sm_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        splash.splash_bwd_dkv_cuda(q, k, v, q, lse, lse, mask,
+                                   sm_scale=0.125)
+    assert [fn.launches for fn in launchers] == before
+
+
+def test_gpt_and_train_step_with_splash_match_jax(interpret):
+    """tiny at max_seq_len 128 with attention_impl="splash" (GQA 4/2):
+    the port's logits and one make_train step (loss, grad_norm) against
+    JAX's GPT and make_sharded_train from the same weights.  Both run
+    fp32; the gaps are summation order, as in the flash tests."""
+    over = dict(n_kv_heads=2, max_seq_len=128, attention_impl="splash")
+    jcfg, tcfg = jax_config("tiny", **over), get_config("tiny", **over)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, tcfg.vocab_size, (2, 129)).astype(np.int32)
+    batch = {"tokens": tokens}
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    opt = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=10)
+    mesh = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    jmodel = JaxGPT(jcfg, mesh=mesh)
+    init_fn, step_fn, _, _ = make_sharded_train(
+        jmodel, mesh, JaxOptimizerConfig(**opt), example_batch=jbatch)
+    state = init_fn(jax.random.PRNGKey(0), jbatch)
+    params = jax.tree.map(np.asarray, nn.meta.unbox(state.params))
+    want_logits = jmodel.apply({"params": params}, tokens[:, :-1])
+
+    model = GPT(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(params, tcfg))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens[:, :-1]).long())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               atol=FWD_ATOL)
+
+    _, m = step_fn(state, jbatch)
+    tinit, tstep = make_train(model, OptimizerConfig(**opt))
+    _, tm = tstep(tinit(), batch)
+    np.testing.assert_allclose(float(tm["loss"]), float(m["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(m["grad_norm"]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_remat_recomputes_the_splash_forward_once_per_layer(monkeypatch,
+                                                            remat):
+    """Per-block torch.utils.checkpoint reruns the splash forward once per
+    layer in the backward, as it reruns K1; the backward runs once."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counted(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(splash, "splash_fwd_ref",
+                        counted("fwd", splash.splash_fwd_ref))
+    monkeypatch.setattr(splash, "splash_bwd_ref",
+                        counted("bwd", splash.splash_bwd_ref))
+    cfg = get_config("tiny", attention_impl="splash", remat=remat)
+    model = GPT(cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, 128)))
+    model(tokens).float().square().mean().backward()
+    assert calls == {"fwd": cfg.n_layers * (2 if remat else 1),
+                     "bwd": cfg.n_layers}
