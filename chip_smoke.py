@@ -23,12 +23,19 @@ package.  Phases, one JSON line each:
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
               (16 x 1024, 12 heads of 64, causal, bf16), at a GQA 32/8
-              head_dim-128 shape, and at fp32 / full / ragged shapes;
-              kernel / plain / SDPA time beside the bound.
+              head_dim-128 shape, at fp32 / full / ragged shapes, with
+              q, k and v as strided views of one fused [B, S, H + 2 KVH,
+              D] tensor, at S = 64 (one tile) and at 1 x 4096 (a long
+              ring of kv tiles), and with rows whose logits all lie far
+              below the exponent's range; kernel / plain / SDPA time
+              beside the bound, the forward's TFLOP/s, registers, local
+              memory (spills) and blocks per SM.
   5. splash   the splash kernels K5-fwd, K5-dQ and K5-dKV in the same
               way at the same training shape, at GQA 32/8 head_dim 128
-              (2 x 2048), with a full mask (q 512, kv 1024) and in fp32;
-              the tiles the mask table visits against the dense count.
+              (2 x 2048), with a full mask (q 512, kv 1024), in fp32,
+              from a fused tensor, at S = 128 (the library's shortest
+              length), at 1 x 4096 and with rows of very low logits; the
+              tiles the mask table visits against the dense count.
   6. train    gpt-small at full width and depth with bench.py's
               settings (batch 16 x 1024, remat "dots", AdamW warmup 10 /
               decay 1000, attention_impl "flash"), random weights from
@@ -93,6 +100,19 @@ SPLASH_REPLACES = {
                       "_flash_attention_dkv_kernel"}
 # float32 outside the tensor cores (the flash kernels' fp32 inputs)
 FP32_FLOPS = 67e12
+# The bf16 forwards (tensor-core K1 and K5-fwd) against their plain
+# versions: both sum in fp32 and round o to bf16, so they may differ by
+# one bf16 ulp where the two fp32 values straddle a rounding boundary:
+# at most 2^-7 = 0.0078125 for |o| < 2.  The split P.V keeps P to ~16
+# bits, so the fp32 values agree to ~1e-5 relative and a flip at
+# |o| >= 2 is rare.
+FWD_BF16_MAX_ERR = 2.0 ** -7
+# ... and at most this share of the bf16 o elements may differ from the
+# plain version at all (the CPU tests' SPLIT_DIFFERING): a forward that
+# keeps P to ~16 bits differs in ~0.2-0.3% of them, one that rounds P to
+# bf16 before P.V in ~40%.  At the training shape the script checks that
+# such a forward (emulated in plain torch) fails this gate.
+FWD_BF16_DIFFERING = 0.01
 # Flash kernels against their plain versions: both sum in fp32.  In bf16
 # both round the outputs to bf16 (2^-8 relative), so ATOL = RTOL = 2e-2
 # as for paged attention.  In fp32 the gap is summation order over
@@ -178,6 +198,24 @@ def paged_bound(q, kv_pages, lengths, block_tables) -> dict:
             "bytes": nbytes, "flops": flops,
             "occupied_page_bytes": page_bytes,
             "occupied_page_bound_ms": page_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def tc_usage(family: str) -> dict:
+    """{head_dim: {"registers", "local_bytes", "blocks_per_sm"}} of the
+    tensor-core forward of ``family`` ("flash" or "splash"), as the CUDA
+    runtime reports them: registers and local memory (spills and stack)
+    per thread, and resident blocks per SM."""
+    import ctypes
+    from ray_tpu_torch.ops import flash_attention, splash
+    lib = (flash_attention if family == "flash" else splash)._lib()
+    out = {}
+    for hd in (64, 128):
+        u = (ctypes.c_int * 3)()
+        err = getattr(lib, f"rt_{family}_fwd_usage")(hd, u)
+        check(err == 0, f"{family} forward usage query: cudaError {err}")
+        out[str(hd)] = dict(zip(("registers", "local_bytes",
+                                 "blocks_per_sm"), u))
+    return out
 
 
 def compare(got, want, atol: float = ATOL, rtol: float = RTOL) -> dict:
@@ -526,11 +564,37 @@ def kernel_fns(family: str, causal: bool, scale: float, h: int, sq: int,
             *(ref(getattr(mod, f"{family}_{n}_ref")) for n in names))
 
 
+def bf16_p_share(family, q, k, v, causal, scale, o_r) -> float:
+    """The share of o elements in which a forward that rounds P to bf16
+    before P.V (plain torch on the plain version's scores) differs from
+    the plain version's o_r: what FWD_BF16_DIFFERING has to catch."""
+    import torch
+    if family == "flash":
+        from ray_tpu_torch.ops import flash_attention as mod
+        k_, v_, _ = mod._expand(q, k, v)
+        s = mod._scores(q, k_, causal, scale)
+    else:
+        from ray_tpu_torch.ops import splash as mod
+        k_, v_, _ = mod._expand(q, k, v)
+        mask = mod.make_mask(q.shape[2], q.shape[1], k.shape[1], causal)
+        s = mod._scores(q * mod.dtype_scale(scale, q.dtype), k_, mask)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(),
+                     v_.float()).to(q.dtype)
+    return float((o != o_r).float().mean())
+
+
 def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
-                   skv=None, timed: bool = False) -> dict:
+                   skv=None, timed: bool = False, fused: bool = False,
+                   low: bool = False) -> dict:
     """The three flash or splash kernels on one shape against their plain
     versions (and, when ``timed``, kernel / plain / SDPA times beside the
-    bounds)."""
+    bounds).  ``fused``: q, k and v are strided views of one [B, S,
+    H + 2 KVH, D] tensor, as a fused qkv projection leaves them.
+    ``low``: every key gets +1 in every element and every 7th query row
+    is -24 in every element, so that all the logits of those rows lie
+    near -24 x 64 x scale (-192 at head_dim 64): a row's first tile then
+    has its max far below the exponent's range."""
     import torch
     import torch.nn.functional as F
     skv = sq if skv is None else skv
@@ -542,15 +606,39 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                                                   rtol=FLASH_FP32_TOL)
 
     def inputs():
-        return tuple(torch.randn(*shape, generator=gen, device=dev
-                                 ).to(dtype)
-                     for shape in ((b, sq, h, d), (b, skv, kvh, d),
-                                   (b, skv, kvh, d), (b, sq, h, d)))
+        if fused:
+            qkv = torch.randn(b, sq, h + 2 * kvh, d, generator=gen,
+                              device=dev).to(dtype)
+            q, k, v = qkv.split([h, kvh, kvh], dim=2)
+            do = torch.randn(b, sq, h, d, generator=gen, device=dev
+                             ).to(dtype)
+        else:
+            q, k, v, do = (torch.randn(*shape, generator=gen, device=dev
+                                       ).to(dtype)
+                           for shape in ((b, sq, h, d), (b, skv, kvh, d),
+                                         (b, skv, kvh, d), (b, sq, h, d)))
+        if low:
+            q[:, ::7] = -24.0
+            k += 1.0
+        return q, k, v, do
 
     # two input sets (4 x 25 MB each at gpt-small shapes) so that timed
     # calls find their inputs cold in the 50 MB L2, as a layer does
     sets = [inputs() for _ in range(2 if timed else 1)]
     q, k, v, do = sets[0]
+    if low:
+        # rows whose first tile's max logit, in units of log2, is below
+        # -128: there a rescale of 2^(0 - max) from "no key seen yet"
+        # overflows, and inf * 0 gives NaN
+        first = torch.einsum("bqhd,bkhd->bhqk", q.float(), k[:, :64].float()
+                             .repeat_interleave(h // kvh, 2)) * scale
+        if causal:
+            first = first.masked_fill(torch.ones(
+                sq, first.shape[-1], dtype=torch.bool, device=dev
+            ).triu(1), -math.inf)
+        low_rows = int((first.amax(-1) * math.log2(math.e) < -128).sum())
+        check(low_rows > 0, f"no row of the low-logit case at {[b, sq, h]} "
+                            "has its first tile's max below -128 in log2")
     o, lse = fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq = dq_k(q, k, v, do, lse, delta)
@@ -560,7 +648,8 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
     dq_r = ref_dq(q, k, v, o, lse, do)
     dk_r, dv_r = ref_dkv(q, k, v, o, lse, do)
     res = {"shape": [b, sq, skv, h, kvh, d], "dtype": str(dtype),
-           "causal": causal,
+           "causal": causal, "fused": fused,
+           "low_rows": low_rows if low else 0,
            kinds[0]: {"o": compare(o, o_r, **tol),
                       "lse": compare(lse, lse_r, atol=FLASH_FP32_TOL,
                                      rtol=FLASH_FP32_TOL)},
@@ -574,6 +663,16 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                   f"{res['shape']} {dtype} causal={causal}: {c}")
         res[kind]["max_abs_err"] = max(c["max_abs_err"]
                                        for c in res[kind].values())
+    if dtype == torch.bfloat16:
+        err = res[kinds[0]]["o"]["max_abs_err"]
+        check(err <= FWD_BF16_MAX_ERR,
+              f"{kinds[0]} o is {err} from the plain version at "
+              f"{res['shape']} causal={causal}, over {FWD_BF16_MAX_ERR}")
+        share = res[kinds[0]]["o"]["frac_differing"]
+        check(share <= FWD_BF16_DIFFERING,
+              f"{kinds[0]} o differs from the plain version in {share} of "
+              f"its elements at {res['shape']} causal={causal}, over "
+              f"{FWD_BF16_DIFFERING}")
     if family == "splash":
         from ray_tpu_torch.ops.splash import BLOCK, TILE, make_mask, \
             mask_table
@@ -586,6 +685,14 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                         "library_dense": b * blocks.dense}
     if not timed:
         return res
+
+    if dtype == torch.bfloat16:
+        share = bf16_p_share(family, q, k, v, causal, scale, o_r)
+        res[kinds[0]]["o"]["bf16_p_frac_differing"] = share
+        check(share > FWD_BF16_DIFFERING,
+              f"a forward with P in bf16 differs in only {share} of o, "
+              f"within the {FWD_BF16_DIFFERING} gate that should catch it")
+        torch.cuda.empty_cache()
 
     outs = [fwd(q_, k_, v_) for q_, k_, v_, _ in sets]
     bwd_sets = [(q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1)
@@ -624,9 +731,11 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
             (kinds[1], dq_k, ref_dq, bwd_sets, ref_bwd_sets, lib_bwd),
             (kinds[2], dkv_k, ref_dkv, bwd_sets, ref_bwd_sets, lib_bwd)):
         ms, host_ms = time_ms(fn, args)
+        bound = attn_bound(kind, q, k, causal)
         res[kind].update(ms=ms, host_ms=host_ms,
                          plain_ms=time_ms(ref, ref_args, reps=2)[0],
-                         library_ms=lib, **attn_bound(kind, q, k, causal))
+                         library_ms=lib, tflop_s=bound["flops"] / ms / 1e9,
+                         **bound)
     res["library_note"] = ("SDPA forward for the forward kernel; SDPA "
                            "backward (dq, dk and dv together) for the dQ "
                            "and dK/dV kernels")
@@ -646,8 +755,14 @@ def flash_phase(dev) -> dict:
         (2, 2000, 32, 8, 128, bf16, True),
         (2, 200, 4, 2, 64, fp32, False, 137),
         (2, 130, 4, 2, 128, fp32, True),
-        (3, 100, 6, 3, 64, bf16, False, 300))]
-    return {"slice_shape": at_slice, "coverage": coverage}
+        (3, 100, 6, 3, 64, bf16, False, 300),
+        (2, 512, 12, 4, 64, bf16, True, None, False, True),
+        (2, 64, 4, 2, 64, bf16, True),
+        (1, 4096, 12, 12, 64, bf16, True),
+        (2, 512, 4, 2, 64, bf16, True, None, False, False, True),
+        (2, 256, 8, 2, 128, bf16, False, None, False, False, True))]
+    return {"slice_shape": at_slice, "coverage": coverage,
+            "tc_kernel": tc_usage("flash")}
 
 
 def splash_phase(dev) -> dict:
@@ -662,8 +777,14 @@ def splash_phase(dev) -> dict:
     coverage = [attention_case(dev, gen, "splash", *c) for c in (
         (2, 2048, 32, 8, 128, bf16, True),
         (2, 512, 8, 8, 64, bf16, False, 1024),
-        (2, 256, 4, 4, 64, fp32, True))]
-    return {"slice_shape": at_slice, "coverage": coverage}
+        (2, 256, 4, 4, 64, fp32, True),
+        (2, 512, 12, 4, 64, bf16, True, None, False, True),
+        (2, 128, 4, 2, 64, bf16, True),
+        (1, 4096, 12, 12, 64, bf16, True),
+        (2, 512, 4, 2, 64, bf16, True, None, False, False, True),
+        (2, 256, 8, 2, 128, bf16, False, None, False, False, True))]
+    return {"slice_shape": at_slice, "coverage": coverage,
+            "tc_kernel": tc_usage("splash")}
 
 
 def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
@@ -753,12 +874,18 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
         state, _ = step_fn(state, data)
         torch.cuda.synchronize()
     groups = {impl: 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
+    # the attention group by kernel: ms and launches in the step
+    attention = {n: [0.0, 0] for n in ("fwd", "bwd_dq", "bwd_dkv")}
     events = sorted(prof.key_averages(),
                     key=lambda e: -e.self_device_time_total)
     top = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
            for e in events[:15]]
     for e in events:
         key = e.key.lower()
+        for n, a in attention.items():
+            if f"{impl}_{n}" in key:
+                a[0] += e.self_device_time_total / 1e3
+                a[1] += e.count
         if f"{impl}_" in key:
             group = impl
         elif "nvjet" in key or "gemm" in key or "splitk" in key \
@@ -784,6 +911,7 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
             "flops_per_token": flops_per_token,
             "mfu": flops_per_token * tokens_s / BF16_FLOPS,
             "peak_mem_gb": peak_gb, "step_device_ms": groups,
+            "attention_device_ms_calls": attention,
             "top_kernels_ms_calls": top,
             "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
 
@@ -866,6 +994,11 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
+            if kind.endswith("_fwd"):
+                rows[-1].update(tflop_s=r["tflop_s"], **{
+                    key: {hd: u[key] for hd, u in phase["tc_kernel"].items()}
+                    for key in ("registers", "local_bytes",
+                                "blocks_per_sm")})
     kernels = {"kernels": rows}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -3,7 +3,7 @@
 // read through their strides, with grouped-query heads (kv_head = h / g).
 //
 // They replace the Pallas TPU kernels of ray_tpu/ops/flash_attention.py and
-// compute the same functions (q pre-scaled by `scale`, scores masked with
+// compute the same functions (q scaled by `scale`, scores masked with
 // -1e30 on the causal diagonal, fp32 sums):
 //
 //   K1  _fwd_kernel      O = softmax(q.K^T) V and LSE = m + log(l)
@@ -15,13 +15,23 @@
 // with delta = rowsum(dO o O) computed outside the kernels, as the JAX
 // package does.
 //
-// What bounds them on this card: operations.  At the training shapes
-// (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
-// against a few bytes, far above the ~295 flops per byte where the tensor
-// cores, not the memory, become the limit.  These first versions are
-// simple and right, not fast: the products run as fp32 FMAs on the CUDA
-// cores (67 TFLOP/s, not the 989 of bf16 tensor cores).  The design keeps
-// the bytes near their bound and leaves the rate for later work:
+// K1 on bf16 inputs is flash_fwd_tc_kernel: the tensor-core forward of
+// attention_fwd_tc.cuh (bf16 mma.sync tiles, a cp.async ring of K/V tiles,
+// the softmax in registers, P.V split into two bf16 products so that P
+// keeps ~16 bits as the reference's fp32 P does).  Its walk visits the kv
+// tiles up to the causal diagonal, multiplies the fp32 scores by `scale`
+// (bf16 products are exact in fp32, so this is the reference's
+// (q * scale).k up to fp32 rounding), and masks the diagonal tile and the
+// ragged last tile (S not a multiple of 64), whose rows the copies
+// zero-fill.  It needs every row of q, k and v on 16 bytes.
+//
+// K1 on fp32 inputs, K2 and K3 are the first, simple versions: products
+// as fp32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16 tensor
+// cores).  What bounds them on this card: operations.  At the training
+// shapes (S = 1024, head_dim 64) each (query, key) pair costs
+// 4-8 * head_dim flops against a few bytes, far above the ~295 flops per
+// byte where the tensor cores, not the memory, become the limit.  Their
+// design keeps the bytes near their bound and leaves the rate for later:
 //   - the TPU's 1024-row blocks sat in megabytes of VMEM.  Here a thread
 //     block holds 64 x 64 tiles in shared memory (fp32, rows padded by one
 //     word so that no two threads of a half-warp share a bank), and a loop
@@ -37,8 +47,7 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - the ragged edge (S not a multiple of 64) is loaded as zeros and
 //     masked, and is never stored.
-// Left for later: mma/wgmma tensor-core tiles, TMA loads, a pipelined ring
-// of tiles.
+// Left for later: tensor-core tiles for K2 and K3, TMA loads, wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -49,6 +58,10 @@
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
@@ -163,9 +176,10 @@ __device__ __forceinline__ int k_tiles(const Params& p, int q0) {
   return p.causal ? min(n, (q0 + kTile - 1) / kTile + 1) : n;
 }
 
-// K1: grid (B * H, q tiles), the last q tile first.
-template <typename T, int D>
+// K1 on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -240,6 +254,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(l_safe);
   }
+}
+
+// K1's walk for attention_fwd_tc.cuh: kv tiles 0 .. n - 1; the tiles that
+// cross the causal diagonal or the ragged end take the element mask.
+struct FlashWalk {
+  static constexpr float kMaskValue = kNegInf;
+  int n, Skv, causal;
+  float scale;
+  __device__ int count() const { return n; }
+  __device__ int kv_row(int j) const { return j * kTile; }
+  __device__ bool masked(int j, int q0) const {
+    const int end = (j + 1) * kTile;
+    return end > Skv || (causal && end - 1 > q0);
+  }
+  __device__ bool keep(int row, int col) const {
+    return col < Skv && (!causal || col <= row);
+  }
+  __device__ float logit_scale() const { return scale; }
+  template <int N>
+  __device__ void prepare_q(uint32_t (&)[N][4]) const {}
+};
+
+// K1 on bf16 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    flash_fwd_tc_kernel(attn_tc::Args a, int causal, float scale) {
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int n = (a.Skv + kTile - 1) / kTile;
+  const FlashWalk walk{causal ? min(n, q0 / kTile + 1) : n, a.Skv, causal,
+                       scale};
+  attn_tc::forward_block<D>(a, walk, b, h, q0);
 }
 
 // K2: grid (B * H, q tiles), the last q tile first.
@@ -391,7 +437,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-size_t smem_bytes(int kind, int d) {
+size_t smem_bytes(int kind, int dtype, int d) {
+  if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
   switch (kind) {
@@ -402,43 +449,66 @@ size_t smem_bytes(int kind, int d) {
   return 0;
 }
 
+template <int D>
+cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::Args a;
+  if (!attn_tc::make_args(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(flash_fwd_tc_kernel<D>,
+                         dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
+                         attn_tc::kThreads, attn_tc::smem_bytes(D), stream,
+                         a, p.causal, p.scale);
+}
+
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
-  void (*fn)(Params);
-  dim3 grid;
+  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  const size_t smem = smem_bytes(kind, dtype, D);
   if (kind == kFwd) {
-    fn = flash_fwd_kernel<T, D>;
-    grid = dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile);
-  } else if (kind == kDq) {
-    fn = flash_bwd_dq_kernel<T, D>;
-    grid = dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile);
-  } else {
-    fn = flash_bwd_dkv_kernel<T, D>;
-    grid = dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile);
+    // fp32 keeps the CUDA-core forward; no bf16 call reaches it
+    if constexpr (dtype == 0)
+      return attn_tc::launch(flash_fwd_kernel<D>,
+                             dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
+                             kThreads, smem, stream, p);
+    else
+      return run_fwd_tc<D>(p, stream);
   }
-  const size_t smem = smem_bytes(kind, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fn<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (kind == kDq)
+    return attn_tc::launch(flash_bwd_dq_kernel<T, D>,
+                           dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
+                           kThreads, smem, stream, p);
+  return attn_tc::launch(flash_bwd_dkv_kernel<T, D>,
+                         dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+                         kThreads, smem, stream, p);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of `kind` (0 K1, 1 K2, 2 K3) needs at
-// head_dim hd; the wrapper refuses shapes whose need exceeds the card's
-// per-block limit.
-size_t rt_flash_smem_bytes(int kind, int hd) { return smem_bytes(kind, hd); }
+// Dynamic shared memory one block of `kind` (0 K1, 1 K2, 2 K3) needs for
+// dtype (0 fp32, 1 bf16) at head_dim hd; the wrapper refuses shapes whose
+// need exceeds the card's per-block limit.
+size_t rt_flash_smem_bytes(int kind, int dtype, int hd) {
+  return smem_bytes(kind, dtype, hd);
+}
+
+// Registers per thread, local memory bytes per thread and resident blocks
+// per SM of K1's bf16 kernel at head_dim hd, as the CUDA runtime reports
+// them, into out[3]; the cudaError_t of the query.
+int rt_flash_fwd_usage(int hd, int* out) {
+  if (hd == 64) return attn_tc::usage(flash_fwd_tc_kernel<64>, 64, out);
+  if (hd == 128) return attn_tc::usage(flash_fwd_tc_kernel<128>, 128, out);
+  return cudaErrorInvalidValue;
+}
 
 // One launch of K1 (kind 0), K2 (kind 1) or K3 (kind 2).  dtype 0 is fp32,
 // 1 is bf16, for q, k, v, dout and the outputs alike.  strides holds the
 // (batch, seq, head) strides in elements of q, k and v, in that order; their
 // head_dim stride is 1.  dout, out, dk and dv are contiguous; lse and delta
-// are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  Returns
-// the cudaError_t of the launch.
+// are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  K1 on
+// bf16 needs the q, k and v pointers and strides on 16 bytes
+// (cudaErrorMisalignedAddress otherwise).  Returns the cudaError_t of the
+// launch.
 int rt_flash_attention(int kind, int dtype, const void* q, const void* k,
                        const void* v, const void* dout, void* out, void* dk,
                        void* dv, void* lse, const void* delta,

@@ -32,13 +32,21 @@
 // only rule of the masks the port builds (CausalMask; FullMask has no
 // partial tiles).  At S = 1024 causal that is 136 of 256 tiles, 16 partial.
 //
+// K5-fwd on bf16 inputs is splash_fwd_tc_kernel: the tensor-core forward
+// of attention_fwd_tc.cuh (bf16 mma.sync tiles, a cp.async ring of K/V
+// tiles, the softmax in registers, P.V split into two bf16 products so
+// that P keeps ~16 bits as the library's fp32 P does).  Its walk is the
+// block's table entries; it stages q_s = bf16(q * scale) from the Q
+// fragments, so its products are the library's exactly.  It needs every
+// row of q, k and v on 16 bytes.
+//
 // What bounds them on this card: operations.  At the training shapes
 // (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
 // against a few bytes, far above the ~295 flops per byte where the tensor
-// cores, not the memory, become the limit.  These first versions are
-// simple and right, not fast: the products run as fp32 FMAs on the CUDA
-// cores from shared memory, as K1-K3 do (csrc/flash_attention.cu), and P
-// stays fp32 for P.V, which the library also keeps in fp32.  The design:
+// cores, not the memory, become the limit.  K5-fwd on fp32, K5-dQ and
+// K5-dKV are the first, simple versions: the products run as fp32 FMAs on
+// the CUDA cores from shared memory, as K2 and K3 do
+// (csrc/flash_attention.cu).  Their design:
 //   - a thread block holds 64 x 64 fp32 tiles in shared memory (rows padded
 //     by one word against bank conflicts), and a loop over the block's
 //     table entries replaces the TPU's sequential grid dimension, which
@@ -52,8 +60,8 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - q_len and kv_len are multiples of 64 (the library's 128-row blocks),
 //     so there is no ragged edge.
-// Left for later: tensor-core tiles for the bf16 products, TMA loads, a
-// pipelined ring of tiles.
+// Left for later: tensor-core tiles for K5-dQ and K5-dKV, TMA loads,
+// wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -65,6 +73,10 @@
 
 #include <float.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "attention_fwd_tc.cuh"
 
 namespace {
 
@@ -183,9 +195,10 @@ __device__ __forceinline__ void mm_nn(const float* P, const float* Bm,
   }
 }
 
-// K5-fwd: grid (B * H, q tiles), the last q tile first.
-template <typename T, int D>
+// K5-fwd on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
 __global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -263,6 +276,45 @@ __global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
           m[i] + logf(l_safe);
   }
+}
+
+// K5-fwd's walk for attention_fwd_tc.cuh: the q tile's table entries;
+// partial tiles take the causal rule.
+struct SplashWalk {
+  static constexpr float kMaskValue = kMask;
+  const int* ent;       // the q tile's entries, (kv tile << 1) | partial
+  int n;
+  float scale;          // sm_scale rounded to bf16
+  __device__ int count() const { return n; }
+  __device__ int kv_row(int j) const { return (__ldg(ent + j) >> 1) * kTile; }
+  __device__ bool masked(int j, int) const { return __ldg(ent + j) & 1; }
+  __device__ bool keep(int row, int col) const { return col <= row; }
+  __device__ float logit_scale() const { return 1.f; }
+  // q_s = bf16(q * scale), as the library scales q in its own dtype
+  template <int N>
+  __device__ void prepare_q(uint32_t (&qf)[N][4]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float2 x = __bfloat1622float2(attn_tc::as_bf162(qf[i][e]));
+        qf[i][e] = attn_tc::as_u32(
+            __floats2bfloat162_rn(x.x * scale, x.y * scale));
+      }
+  }
+};
+
+// K5-fwd on bf16 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    splash_fwd_tc_kernel(attn_tc::Args a, const int* head_map,
+                         const int* ptr, const int* ent, float scale) {
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;
+  const int* list = ptr + head_map[h] * (nq + 1) + qt;
+  const SplashWalk walk{ent + list[0], list[1] - list[0], scale};
+  attn_tc::forward_block<D>(a, walk, b, h, qt * kTile);
 }
 
 // K5-dQ: grid (B * H, q tiles), the last q tile first.
@@ -419,7 +471,8 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
   }
 }
 
-size_t smem_bytes(int kind, int d) {
+size_t smem_bytes(int kind, int dtype, int d) {
+  if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
   switch (kind) {
@@ -430,26 +483,36 @@ size_t smem_bytes(int kind, int d) {
   return 0;
 }
 
+template <int D>
+cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::Args a;
+  if (!attn_tc::make_args(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(splash_fwd_tc_kernel<D>,
+                         dim3(p.B * p.H, p.Sq / kTile), attn_tc::kThreads,
+                         attn_tc::smem_bytes(D), stream, a, p.head_map,
+                         p.ptr, p.ent, p.scale);
+}
+
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
-  void (*fn)(Params);
-  dim3 grid;
+  constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
+  const size_t smem = smem_bytes(kind, dtype, D);
   if (kind == kFwd) {
-    fn = splash_fwd_kernel<T, D>;
-    grid = dim3(p.B * p.H, p.Sq / kTile);
-  } else if (kind == kDq) {
-    fn = splash_bwd_dq_kernel<T, D>;
-    grid = dim3(p.B * p.H, p.Sq / kTile);
-  } else {
-    fn = splash_bwd_dkv_kernel<T, D>;
-    grid = dim3(p.B * p.KVH, p.Skv / kTile);
+    // fp32 keeps the CUDA-core forward; no bf16 call reaches it
+    if constexpr (dtype == 0)
+      return attn_tc::launch(splash_fwd_kernel<D>,
+                             dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
+                             stream, p);
+    else
+      return run_fwd_tc<D>(p, stream);
   }
-  const size_t smem = smem_bytes(kind, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fn<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (kind == kDq)
+    return attn_tc::launch(splash_bwd_dq_kernel<T, D>,
+                           dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
+                           stream, p);
+  return attn_tc::launch(splash_bwd_dkv_kernel<T, D>,
+                         dim3(p.B * p.KVH, p.Skv / kTile), kThreads, smem,
+                         stream, p);
 }
 
 }  // namespace
@@ -457,9 +520,20 @@ cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory one block of `kind` (0 K5-fwd, 1 K5-dQ, 2 K5-dKV)
-// needs at head_dim hd; the wrapper refuses shapes whose need exceeds the
-// card's per-block limit.
-size_t rt_splash_smem_bytes(int kind, int hd) { return smem_bytes(kind, hd); }
+// needs for dtype (0 fp32, 1 bf16) at head_dim hd; the wrapper refuses
+// shapes whose need exceeds the card's per-block limit.
+size_t rt_splash_smem_bytes(int kind, int dtype, int hd) {
+  return smem_bytes(kind, dtype, hd);
+}
+
+// Registers per thread, local memory bytes per thread and resident blocks
+// per SM of K5-fwd's bf16 kernel at head_dim hd, as the CUDA runtime reports
+// them, into out[3]; the cudaError_t of the query.
+int rt_splash_fwd_usage(int hd, int* out) {
+  if (hd == 64) return attn_tc::usage(splash_fwd_tc_kernel<64>, 64, out);
+  if (hd == 128) return attn_tc::usage(splash_fwd_tc_kernel<128>, 128, out);
+  return cudaErrorInvalidValue;
+}
 
 // One launch of K5-fwd (kind 0), K5-dQ (kind 1) or K5-dKV (kind 2).  dtype 0
 // is fp32, 1 is bf16, for q, k, v, dout and the outputs alike.  strides
@@ -469,7 +543,9 @@ size_t rt_splash_smem_bytes(int kind, int hd) { return smem_bytes(kind, hd); }
 // table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
 // the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
 // rounded to the input dtype.  Pointers a kind does not use may be null.
-// Returns the cudaError_t of the launch.
+// K5-fwd on bf16 needs the q, k and v pointers and strides on 16 bytes
+// (cudaErrorMisalignedAddress otherwise).  Returns the cudaError_t of the
+// launch.
 int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
                         const void* v, const void* dout, void* out, void* dk,
                         void* dv, void* lse, const void* delta,

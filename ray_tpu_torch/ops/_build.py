@@ -3,8 +3,9 @@
 Each ``ray_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``ray_tpu_torch/_build/`` (git-ignored).  The library's file name carries
-a hash of its source, so a library is rebuilt only when its source
-changes, and a stale one is never loaded.  ``build`` compiles several
+a hash of its source and of every header in ``csrc/`` (``*.cuh``), so a
+library is rebuilt only when its source or a header changes, and a stale
+one is never loaded.  ``build`` compiles several
 sources at once, one nvcc each.  Building needs the CUDA toolkit;
 nothing here runs when the module is imported.
 """
@@ -43,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source
+    and of every ``csrc/*.cuh`` header (names and contents)."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> None:

@@ -10,7 +10,10 @@ Three kernels in ``ray_tpu_torch/csrc/flash_attention.cu`` replace the
 Pallas kernels of the JAX package:
 
   - K1 ``flash_fwd_cuda``: O and the fp32 log-sum-exp of each row
-    (``_fwd_kernel``);
+    (``_fwd_kernel``).  On bf16 inputs it is the tensor-core forward of
+    ``csrc/attention_fwd_tc.cuh``, which copies rows 16 bytes at a time:
+    q, k and v must then start every row on 16 bytes
+    (``check_rows_aligned``); fp32 inputs take the CUDA-core kernel;
   - K2 ``flash_bwd_dq_cuda``: dQ (``_bwd_dq_kernel``);
   - K3 ``flash_bwd_dkv_cuda``: dK and dV (``_bwd_dkv_kernel``).
 
@@ -130,8 +133,10 @@ def _lib():
             i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
             ctypes.c_float, p]
         lib.rt_flash_attention.restype = i
-        lib.rt_flash_smem_bytes.argtypes = [i, i]
+        lib.rt_flash_smem_bytes.argtypes = [i, i, i]
         lib.rt_flash_smem_bytes.restype = ctypes.c_size_t
+        lib.rt_flash_fwd_usage.argtypes = [i, ctypes.POINTER(i)]
+        lib.rt_flash_fwd_usage.restype = i
         lib._rt_typed = True
     return lib
 
@@ -184,11 +189,25 @@ def _check(name: str, q, k, v, causal: bool, do=None, lse=None,
             raise ValueError(f"{tname} must be contiguous")
 
 
+def check_rows_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise ValueError unless every row of each tensor starts on 16
+    bytes: its data pointer and its (batch, seq, head) strides in bytes
+    are multiples of 16.  The bf16 forwards copy rows 16 bytes at a time;
+    a tensor that breaks the rule is refused, not copied."""
+    for tname, t in tensors.items():
+        esize = t.element_size()
+        if t.data_ptr() % 16 or any(st * esize % 16 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: every row of {tname} must start on 16 bytes (data "
+                f"pointer {t.data_ptr() % 16} bytes past 16, strides "
+                f"{tuple(t.stride())} of {esize}-byte elements)")
+
+
 def _launch(kind: int, q, k, v, causal: bool, scale: float, *, dout=None,
             out=None, dk=None, dv=None, lse=None, delta=None) -> None:
     lib = _lib()
     d = q.shape[-1]
-    smem = lib.rt_flash_smem_bytes(kind, d)
+    smem = lib.rt_flash_smem_bytes(kind, _DTYPES[q.dtype], d)
     if smem > _MAX_SMEM:
         raise ValueError(f"head_dim {d} needs {smem} B of shared memory per "
                          f"block; the card allows {_MAX_SMEM}")
@@ -212,9 +231,12 @@ def _launch(kind: int, q, k, v, causal: bool, scale: float, *, dout=None,
 
 def flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: (o [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]).  Every
-    launch adds one to ``flash_fwd_cuda.launches``."""
+    """K1: (o [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]).  bf16
+    rows must start on 16 bytes.  Every launch adds one to
+    ``flash_fwd_cuda.launches``."""
     _check("flash_fwd_cuda", q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("flash_fwd_cuda", q=q, k=k, v=v)
     b, sq, h, d = q.shape
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

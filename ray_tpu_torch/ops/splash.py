@@ -9,7 +9,9 @@ a mask to a table of tiles on the host (``mask_table``), and walks that
 table in three kernels of ``ray_tpu_torch/csrc/splash_attention.cu``:
 
   - K5-fwd ``splash_fwd_cuda``: O and the fp32 log-sum-exp of each row
-    (the library's ``flash_attention_kernel``);
+    (the library's ``flash_attention_kernel``); on bf16 inputs the
+    tensor-core forward it shares with K1 (``csrc/attention_fwd_tc.cuh``),
+    which needs every row of q, k and v on 16 bytes;
   - K5-dQ ``splash_bwd_dq_cuda`` (``_flash_attention_dq_kernel``);
   - K5-dKV ``splash_bwd_dkv_cuda`` (``_flash_attention_dkv_kernel``).
 
@@ -20,7 +22,8 @@ Semantics kept from the JAX side:
     Python float is in JAX), so dq is the kernel's gradient times the
     scale, again in q's dtype;
   - masked scores take ``MASK_VALUE`` = -0.7 * FLT_MAX;
-  - the forward keeps P in fp32 for P.V (the library casts v to fp32);
+  - the forward keeps P in fp32 for P.V (the library casts v to fp32;
+    the bf16 kernel carries ~16 bits of P as two bf16 terms);
     the backward rounds P (for dV) and dS (for dQ and dK) to the input
     dtype before their products, as the library does;
   - ``delta = rowsum(dO * O)`` is computed in fp32 outside the kernels;
@@ -48,7 +51,8 @@ import torch
 
 from ray_tpu_torch.ops.flash_attention import _DTYPES, _MAX_SMEM
 from ray_tpu_torch.ops.flash_attention import _check as _check_flash
-from ray_tpu_torch.ops.flash_attention import _expand, _fold
+from ray_tpu_torch.ops.flash_attention import (_expand, _fold,
+                                               check_rows_aligned)
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 # the library's default q and kv block: it refuses lengths that are not
@@ -308,8 +312,10 @@ def _lib():
             i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
             ctypes.c_float, p]
         lib.rt_splash_attention.restype = i
-        lib.rt_splash_smem_bytes.argtypes = [i, i]
+        lib.rt_splash_smem_bytes.argtypes = [i, i, i]
         lib.rt_splash_smem_bytes.restype = ctypes.c_size_t
+        lib.rt_splash_fwd_usage.argtypes = [i, ctypes.POINTER(i)]
+        lib.rt_splash_fwd_usage.restype = i
         lib._rt_typed = True
     return lib
 
@@ -334,7 +340,7 @@ def _launch(kind: int, q, k, v, mask: MultiHeadMask, scale: float, *,
             delta=None) -> None:
     lib = _lib()
     d = q.shape[-1]
-    smem = lib.rt_splash_smem_bytes(kind, d)
+    smem = lib.rt_splash_smem_bytes(kind, _DTYPES[q.dtype], d)
     if smem > _MAX_SMEM:
         raise ValueError(f"head_dim {d} needs {smem} B of shared memory per "
                          f"block; the card allows {_MAX_SMEM}")
@@ -363,8 +369,11 @@ def _launch(kind: int, q, k, v, mask: MultiHeadMask, scale: float, *,
 def splash_fwd_cuda(q, k, v, mask: MultiHeadMask, *, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5-fwd: (o [B, Sq, H, D] in q's dtype, lse fp32 [B, H, Sq]).
-    Every launch adds one to ``splash_fwd_cuda.launches``."""
+    bf16 rows must start on 16 bytes.  Every launch adds one to
+    ``splash_fwd_cuda.launches``."""
     _check("splash_fwd_cuda", q, k, v, mask)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("splash_fwd_cuda", q=q, k=k, v=v)
     b, sq, h, d = q.shape
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

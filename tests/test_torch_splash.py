@@ -13,6 +13,11 @@ q * scale, the scale itself, the output, P and dS to bf16 at the same
 places and sum in fp32, so they differ by summation order only: 4e-3 at
 most.  A port that skips any one of those roundings is off by 3e-2 to
 6e-2.
+
+The bf16 tensor-core forward (K5-fwd on the card) is emulated here in
+plain torch and held against the library kernel at the tolerances the
+card's checks hold the kernel to against its plain version: o atol 2e-2,
+LSE atol 1e-4.
 """
 
 import functools
@@ -25,7 +30,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.experimental.pallas.ops.tpu.splash_attention import (
-    splash_attention_kernel)
+    splash_attention_kernel, splash_attention_mask)
 
 from ray_tpu.models.configs import get_config as jax_config
 from ray_tpu.models.gpt import GPT as JaxGPT
@@ -43,6 +48,10 @@ from ray_tpu_torch.train.step import OptimizerConfig, make_train
 FWD_ATOL = 2e-5
 GRAD_ATOL = 2e-4
 BF16_TOL = 2e-2
+LSE_TOL = 1e-4
+SPLIT_DIFFERING = 0.01
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 @pytest.fixture
@@ -250,3 +259,113 @@ def test_remat_recomputes_the_splash_forward_once_per_layer(monkeypatch,
     model(tokens).float().square().mean().backward()
     assert calls == {"fwd": cfg.n_layers * (2 if remat else 1),
                      "bwd": cfg.n_layers}
+
+
+def _tc_fwd_emulated(q, k, v, causal: bool, scale: float,
+                     split: bool = True):
+    """K5-fwd's bf16 tensor-core arithmetic in plain torch (test only), as
+    the kernel runs it: q_s = bf16(q * bf16(scale)); bf16 operands with
+    fp32 sums; the online softmax over 64-key tiles in units of log2:
+    masked scores -inf (a tile the table skips is all masked here, and
+    adds nothing), the running max m of the products from -inf, the base
+    mc = m * log2(e) (0 while a row has seen no key), the rescale
+    2^(mc_old - mc) (0 while the row had seen no key) and
+    P = 2^(s log2(e) - mc); P.V as P_hi.V + P_lo.V with P_hi = bf16(P)
+    and P_lo = bf16(P - P_hi) (without ``split``, P rounded to bf16
+    alone); LSE = mc ln 2 + log l, MASK_VALUE for a row that no key
+    reaches.  -> (o bf16, lse fp32 [B, H, S])."""
+    b, sq, h, _ = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    qs = (q * splash.dtype_scale(scale, q.dtype)).float().transpose(1, 2)
+    kf, vf = (x.float().repeat_interleave(g, 2).transpose(1, 2)
+              for x in (k, v))
+    m = torch.full((b, h, sq), -torch.inf)
+    mc = torch.zeros(b, h, sq)
+    l = torch.zeros(b, h, sq)
+    acc = torch.zeros(b, h, sq, q.shape[-1])
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, splash.TILE):
+        cols = torch.arange(k0, k0 + splash.TILE)
+        s = qs @ kf[:, :, cols].transpose(-1, -2)
+        if causal:
+            s = torch.where(cols[None, :] <= rows, s, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        mc_new = torch.where(mx == -torch.inf, 0.0, mx * LOG2E)
+        alpha = torch.where(m == -torch.inf, 0.0, torch.exp2(mc - mc_new))
+        p = torch.exp2(s * LOG2E - mc_new[..., None])
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float() if split else 0 * hi
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + hi @ vf[:, :, cols] \
+            + lo @ vf[:, :, cols]
+        m, mc = mx, mc_new
+    l = torch.where(l == 0, 1.0, l)
+    o = (acc / l[..., None]).transpose(1, 2).to(torch.bfloat16)
+    lse = torch.where(m == -torch.inf, splash.MASK_VALUE,
+                      mc * LN2 + torch.log(l))
+    return o, lse
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,skv,causal,low", [
+    (2, 256, 2, 2, 64, 256, True, False),
+    (1, 128, 2, 2, 128, 128, True, False),
+    (1, 256, 4, 2, 64, 256, True, False),
+    (1, 128, 2, 2, 64, 256, False, False),
+    (1, 128, 2, 2, 64, 128, True, True),
+    (1, 128, 4, 2, 128, 256, False, True)],
+    ids=["hd64", "hd128", "gqa", "full", "low_logits",
+         "low_logits_full_gqa_hd128"])
+def test_tc_forward_arithmetic_matches_jax_splash(interpret, b, s, h, kvh,
+                                                  d, skv, causal, low):
+    """The emulation against the library kernel in interpret mode
+    (``save_residuals=True`` for its LSE) on bf16 inputs, fed as
+    ray_tpu/ops/splash.py feeds it: q * scale in bf16, [H, S, D] per
+    example, k and v expanded to q's heads.  Beside the tolerance: at
+    most SPLIT_DIFFERING of the outputs may differ at all, a bound that P
+    rounded to bf16 alone fails.  The plain version splash_fwd_ref is
+    held to the same outputs.  With ``low``, every key is +1 in every
+    element and every 7th query row -24 in every element, so those rows'
+    first tile has its max logit far below the exponent's range (where a
+    rescale of 2^(0 - m log2 e) would overflow, and inf * 0 give NaN):
+    they must come out finite, as the library's and the plain version's
+    do."""
+    q, k, v = _qkv(7, b, s, h, kvh, d, skv)
+    if low:
+        k = k + 1.0
+        q[:, ::7] = -24.0
+    scale = d ** -0.5
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o, lse = _tc_fwd_emulated(tq, tk, tv, causal, scale)
+    if low:
+        first = torch.einsum(
+            "bqhd,bkhd->bhqk", (tq * splash.dtype_scale(scale, tq.dtype))
+            .float(), tk.float().repeat_interleave(h // kvh, 2)
+            [:, :splash.TILE])
+        if causal:
+            first = first.masked_fill(torch.ones(
+                s, splash.TILE, dtype=torch.bool).triu(1), -torch.inf)
+        assert (first.amax(-1) * LOG2E < -128).any()
+
+    kind = splash_attention_mask.CausalMask if causal else \
+        splash_attention_mask.FullMask
+    kernel = splash_attention_kernel.make_splash_mha(
+        mask=splash_attention_mask.MultiHeadMask([kind((s, skv))] * h),
+        head_shards=1, q_seq_shards=1, save_residuals=True)
+    jq, jk, jv = (jnp.asarray(np.repeat(x, h // x.shape[2], axis=2),
+                              jnp.bfloat16).transpose(0, 2, 1, 3)
+                  for x in (q, k, v))
+    want_o, (want_lse,) = jax.vmap(kernel)(jq * scale, jk, jv)
+    want_o = _f32(want_o).transpose(0, 2, 1, 3)
+    assert o.dtype == torch.bfloat16 and o.shape == (b, s, h, d)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    np.testing.assert_allclose(_f32(o), want_o, atol=BF16_TOL)
+    assert (_f32(o) != want_o).mean() <= SPLIT_DIFFERING
+    o_bf16_p, _ = _tc_fwd_emulated(tq, tk, tv, causal, scale, split=False)
+    assert (_f32(o_bf16_p) != want_o).mean() > SPLIT_DIFFERING
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               atol=LSE_TOL)
+    ref_o, ref_lse = splash.splash_fwd_ref(
+        tq, tk, tv, splash.make_mask(h, s, skv, causal), scale)
+    np.testing.assert_allclose(_f32(ref_o), want_o, atol=BF16_TOL)
+    np.testing.assert_allclose(ref_lse.numpy(), np.asarray(want_lse),
+                               atol=LSE_TOL)
