@@ -28,8 +28,10 @@ package.  Phases, one JSON line each:
               D] tensor, at S = 64 (one tile) and at 1 x 4096 (a long
               ring of kv tiles), and with rows whose logits all lie far
               below the exponent's range; kernel / plain / SDPA time
-              beside the bound, the forward's TFLOP/s, registers, local
-              memory (spills) and blocks per SM.
+              beside the bound, the forward's and the dK/dV kernel's
+              TFLOP/s, registers, local memory (spills) and blocks per
+              SM; the share of bf16 o, dK and dV elements that differ
+              from the plain versions at all.
   5. splash   the splash kernels K5-fwd, K5-dQ and K5-dKV in the same
               way at the same training shape, at GQA 32/8 head_dim 128
               (2 x 2048), with a full mask (q 512, kv 1024), in fp32,
@@ -113,6 +115,16 @@ FWD_BF16_MAX_ERR = 2.0 ** -7
 # bf16 before P.V in ~40%.  At the training shape the script checks that
 # such a forward (emulated in plain torch) fails this gate.
 FWD_BF16_DIFFERING = 0.01
+# The bf16 tensor-core K3 against its plain version: the reference keeps
+# P and dS in fp32 for P^T.dO and dS^T.q, and the kernel splits each into
+# hi + lo bf16 terms (~16 bits), so at most this share of the bf16 dK and
+# dV elements may differ at all.  A CPU estimate at [1, 1024, 4, 64] bf16
+# causal (seed 0, against a float64 reference rounded to bf16): 0.24% of
+# dK and dV differ with the split, 41.7% with P and dS rounded to bf16
+# alone (max abs error 0.0156, inside ATOL: only this gate can tell).  At
+# the training shape the script checks that such a K3 (emulated in plain
+# torch) fails this gate.
+BWD_BF16_DIFFERING = 0.01
 # Flash kernels against their plain versions: both sum in fp32.  In bf16
 # both round the outputs to bf16 (2^-8 relative), so ATOL = RTOL = 2e-2
 # as for paged attention.  In fp32 the gap is summation order over
@@ -201,20 +213,23 @@ def paged_bound(q, kv_pages, lengths, block_tables) -> dict:
 
 
 def tc_usage(family: str) -> dict:
-    """{head_dim: {"registers", "local_bytes", "blocks_per_sm"}} of the
-    tensor-core forward of ``family`` ("flash" or "splash"), as the CUDA
-    runtime reports them: registers and local memory (spills and stack)
-    per thread, and resident blocks per SM."""
+    """{"fwd" | "bwd_dkv": {head_dim: {"registers", "local_bytes",
+    "blocks_per_sm"}}} of the tensor-core forward and dK/dV kernels of
+    ``family`` ("flash" or "splash"), as the CUDA runtime reports them:
+    registers and local memory (spills and stack) per thread, and
+    resident blocks per SM."""
     import ctypes
     from ray_tpu_torch.ops import flash_attention, splash
     lib = (flash_attention if family == "flash" else splash)._lib()
     out = {}
-    for hd in (64, 128):
-        u = (ctypes.c_int * 3)()
-        err = getattr(lib, f"rt_{family}_fwd_usage")(hd, u)
-        check(err == 0, f"{family} forward usage query: cudaError {err}")
-        out[str(hd)] = dict(zip(("registers", "local_bytes",
-                                 "blocks_per_sm"), u))
+    for kind, sym in (("fwd", "fwd"), ("bwd_dkv", "dkv")):
+        out[kind] = {}
+        for hd in (64, 128):
+            u = (ctypes.c_int * 3)()
+            err = getattr(lib, f"rt_{family}_{sym}_usage")(hd, u)
+            check(err == 0, f"{family} {kind} usage query: cudaError {err}")
+            out[kind][str(hd)] = dict(zip(("registers", "local_bytes",
+                                           "blocks_per_sm"), u))
     return out
 
 
@@ -584,6 +599,33 @@ def bf16_p_share(family, q, k, v, causal, scale, o_r) -> float:
     return float((o != o_r).float().mean())
 
 
+def share_differing(*pairs) -> float:
+    """The share of elements, over every (got, want) pair, that differ
+    at all."""
+    import torch
+    return float(torch.cat([(g != w).flatten() for g, w in pairs])
+                 .float().mean())
+
+
+def bf16_pds_share(q, k, v, o, lse, do, causal, scale, dk_r,
+                   dv_r) -> float:
+    """The share of dK and dV elements in which a K3 that rounds P and dS
+    to bf16 before its products (plain torch on the plain version's P and
+    dS) differs from the plain version's dk_r, dv_r: what
+    BWD_BF16_DIFFERING has to catch."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as mod
+    _, _, g, p, ds = mod._bwd_common(q, k, v, o, lse, do, causal, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(torch.bfloat16).float(),
+                      q.float()) * scale
+    del ds
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(torch.bfloat16).float(),
+                      do.float())
+    del p
+    return share_differing((mod._fold(dk, g).to(k.dtype), dk_r),
+                           (mod._fold(dv, g).to(v.dtype), dv_r))
+
+
 def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                    skv=None, timed: bool = False, fused: bool = False,
                    low: bool = False) -> dict:
@@ -673,6 +715,16 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
               f"{kinds[0]} o differs from the plain version in {share} of "
               f"its elements at {res['shape']} causal={causal}, over "
               f"{FWD_BF16_DIFFERING}")
+        # the share of dK and dV elements that differ at all: gated for
+        # K3 (fp32-faithful through the split), reported for K5-dKV
+        # (which rounds P and dS to bf16 as the library does)
+        share = share_differing((dk, dk_r), (dv, dv_r))
+        res[kinds[2]]["frac_differing"] = share
+        if family == "flash":
+            check(share <= BWD_BF16_DIFFERING,
+                  f"{kinds[2]} dK and dV differ from the plain version in "
+                  f"{share} of their elements at {res['shape']} "
+                  f"causal={causal}, over {BWD_BF16_DIFFERING}")
     if family == "splash":
         from ray_tpu_torch.ops.splash import BLOCK, TILE, make_mask, \
             mask_table
@@ -693,6 +745,15 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
               f"a forward with P in bf16 differs in only {share} of o, "
               f"within the {FWD_BF16_DIFFERING} gate that should catch it")
         torch.cuda.empty_cache()
+        if family == "flash":
+            share = bf16_pds_share(q, k, v, o, lse, do, causal, scale,
+                                   dk_r, dv_r)
+            res[kinds[2]]["bf16_pds_frac_differing"] = share
+            check(share > BWD_BF16_DIFFERING,
+                  f"a K3 with P and dS in bf16 differs in only {share} of "
+                  f"dK and dV, within the {BWD_BF16_DIFFERING} gate that "
+                  "should catch it")
+            torch.cuda.empty_cache()
 
     outs = [fwd(q_, k_, v_) for q_, k_, v_, _ in sets]
     bwd_sets = [(q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1)
@@ -994,11 +1055,14 @@ def main() -> int:
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]})
-            if kind.endswith("_fwd"):
+            tc = phase["tc_kernel"].get(kind.split("_", 1)[1])
+            if tc is not None:
                 rows[-1].update(tflop_s=r["tflop_s"], **{
-                    key: {hd: u[key] for hd, u in phase["tc_kernel"].items()}
+                    key: {hd: u[key] for hd, u in tc.items()}
                     for key in ("registers", "local_bytes",
                                 "blocks_per_sm")})
+            if "frac_differing" in r:
+                rows[-1]["frac_differing"] = r["frac_differing"]
     kernels = {"kernels": rows}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -46,23 +46,11 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tc_common.cuh"
 
 namespace attn_tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;               // rows of a q tile and of a kv tile
-constexpr int kWarps = 4;               // each owns 16 rows of the q tile
-constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;              // K/V tile pairs in the ring
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const bf16* q;     // [B, Sq, H, D], strided, last dim contiguous
@@ -80,14 +68,6 @@ inline size_t smem_bytes(int d) {
   return static_cast<size_t>(kTile) * d * sizeof(bf16) * (1 + 2 * kStages);
 }
 
-// Whether every row that the 16-byte copies read starts on 16 bytes:
-// the pointer and the (batch, seq, head) strides, in bf16 elements.
-inline bool rows_aligned(const void* p, long long sb, long long ss,
-                         long long sh) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 &&
-         ss % 8 == 0 && sh % 8 == 0;
-}
-
 // The forward's arguments from a kernel file's launch parameters P, whose
 // fields are named as Args's (out for o).  False when a row of q, k or v
 // would not start on 16 bytes.
@@ -100,144 +80,6 @@ inline bool make_args(const P& p, Args& a) {
   return rows_aligned(p.q, p.q_sb, p.q_ss, p.q_sh) &&
          rows_aligned(p.k, p.k_sb, p.k_ss, p.k_sh) &&
          rows_aligned(p.v, p.v_sb, p.v_ss, p.v_sh);
-}
-
-// Launch `kernel` with `smem` bytes of dynamic shared memory; the launch's
-// error.
-template <typename Fn, typename... A>
-inline cudaError_t launch(Fn kernel, dim3 grid, int threads, size_t smem,
-                          cudaStream_t stream, A... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// What the CUDA runtime reports of a forward kernel at head_dim d, into
-// out[3]: registers per thread, local memory bytes per thread (spills and
-// stack) and resident blocks per SM; the error of the query.
-template <typename Fn>
-inline cudaError_t usage(Fn kernel, int d, int* out) {
-  const int smem = static_cast<int>(smem_bytes(d));
-  cudaFuncAttributes fa{};
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
-                                                        kThreads, smem);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  return err;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Element offset of (row, col) in a [rows, D] bf16 tile whose 16-byte
-// chunks are XOR-permuted by row % 8 (col a multiple of 2).
-template <int D>
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  // src_bytes = 0 copies nothing and fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most n of this thread's newest copy groups are in flight
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a . b for one m16n8k16 tile: bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t x) {
-  return *reinterpret_cast<__nv_bfloat162*>(&x);
-}
-
-// 2^x on the special-function unit (relative error ~2^-22; results below
-// 2^-126 flush to 0, where P adds nothing next to the row's max of 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi); x0 in the
-// low half, as the fragment wants the lower column there.
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// Queue the copy of rows [row0, row0 + 64) of one head (src points at its
-// row 0, rows row_stride elements apart) into a swizzled [64, D] tile;
-// rows at or past n are zero-filled.  Thread t copies 16-byte chunk
-// t % (D / 8) of rows t / (D / 8) + i * kPass: one base address and fixed
-// steps, and a row test only in a tile that crosses n.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int n) {
-  constexpr int kChunks = D / 8;              // 16-byte chunks of a row
-  constexpr int kPass = kThreads / kChunks;   // rows per pass, a multiple
-                                              // of 8: the swizzle repeats
-  const int r = threadIdx.x / kChunks, ch = threadIdx.x % kChunks;
-  const bf16* g = src + (row0 + r) * row_stride + ch * 8;
-  const long long step = kPass * row_stride;
-  const uint32_t d = smem_addr(dst + swz<D>(r, ch * 8));
-  if (row0 + kTile <= n) {
-#pragma unroll
-    for (int i = 0; i < kTile / kPass; ++i)
-      cp_async16(d + i * kPass * D * 2, g + i * step, 16);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kTile / kPass; ++i) {
-      const bool valid = row0 + r + i * kPass < n;
-      cp_async16(d + i * kPass * D * 2, valid ? g + i * step : src,
-                 valid ? 16 : 0);
-    }
-  }
 }
 
 // The forward of one q tile starting at row q0 of head h of batch b.

@@ -25,7 +25,17 @@
 // ragged last tile (S not a multiple of 64), whose rows the copies
 // zero-fill.  It needs every row of q, k and v on 16 bytes.
 //
-// K1 on fp32 inputs, K2 and K3 are the first, simple versions: products
+// K3 on bf16 inputs is flash_bwd_dkv_tc_kernel: the tensor-core dK/dV of
+// attention_bwd_dkv_tc.cuh (K-stationary bf16 mma.sync tiles, a cp.async
+// ring of Q/dO tiles with their LSE and delta, P^T and dS^T in registers).
+// The reference keeps P and dS in fp32 for P^T.dO and dS^T.q, so both are
+// split into two bf16 products (hi + lo), as the forward splits P.  Its
+// walk visits, for each of the g query heads, the q tiles from the causal
+// diagonal on; it masks the diagonal tile and the ragged last q tile,
+// multiplies the fp32 scores by `scale` and dK by `scale` once before the
+// store.  It needs every row of q, k, v and dout on 16 bytes.
+//
+// K1 and K3 on fp32 inputs and K2 are the first, simple versions: products
 // as fp32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16 tensor
 // cores).  What bounds them on this card: operations.  At the training
 // shapes (S = 1024, head_dim 64) each (query, key) pair costs
@@ -47,7 +57,7 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - the ragged edge (S not a multiple of 64) is loaded as zeros and
 //     masked, and is never stored.
-// Left for later: tensor-core tiles for K2 and K3, TMA loads, wgmma.
+// Left for later: tensor-core tiles for K2, TMA loads, wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -61,6 +71,7 @@
 
 #include <type_traits>
 
+#include "attention_bwd_dkv_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace {
@@ -357,9 +368,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
-// K3: grid (B * KVH, k tiles), the first k tile (the longest causal loop)
-// first.  Tiles are transposed against K2: a thread's patch rows are keys
-// and its columns queries.
+// K3 on fp32 inputs: grid (B * KVH, k tiles), the first k tile (the
+// longest causal loop) first.  Tiles are transposed against K2: a
+// thread's patch rows are keys and its columns queries.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   constexpr int LD = D + 1;
@@ -437,8 +448,52 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
+// K3's walk for attention_bwd_dkv_tc.cuh: for each query head of the
+// group, q tiles qt0 .. nq - 1 (qt0 the diagonal tile when causal, else
+// 0); the diagonal tile and the ragged last q tile take the element mask.
+struct FlashDkvWalk {
+  static constexpr bool kSplit = true;    // fp32 P and dS in the reference
+  static constexpr bool kScaleQ = false;
+  struct Cursor {
+    int gi, qt;
+  };
+  int g, qt0, nq, Sq, causal;
+  float scale;
+  __device__ int count() const { return g * (nq - qt0); }
+  __device__ Cursor first() const { return {0, qt0}; }
+  __device__ void next(Cursor& c) const {
+    if (++c.qt == nq) {
+      c.qt = qt0;
+      ++c.gi;
+    }
+  }
+  __device__ int head(const Cursor& c) const { return c.gi; }
+  __device__ int q_row(const Cursor& c) const { return c.qt * kTile; }
+  __device__ bool masked(const Cursor& c) const {
+    return (causal && c.qt == qt0) || (c.qt + 1) * kTile > Sq;
+  }
+  __device__ bool keep(int kv, int q) const {
+    return q < Sq && (!causal || kv <= q);
+  }
+  __device__ float logit_scale() const { return scale; }
+  __device__ float dk_scale() const { return scale; }
+};
+
+// K3 on bf16 inputs: grid (B * KVH, kv tiles), the first kv tile (the
+// longest causal walk) first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    flash_bwd_dkv_tc_kernel(attn_tc::BwdArgs a, int causal, float scale) {
+  const int b = blockIdx.x / a.KVH, kvh = blockIdx.x % a.KVH;
+  const int kt = blockIdx.y;
+  const FlashDkvWalk walk{a.H / a.KVH, causal ? kt : 0,
+                          (a.Sq + kTile - 1) / kTile, a.Sq, causal, scale};
+  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile);
+}
+
 size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
+  if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
   switch (kind) {
@@ -459,6 +514,16 @@ cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
                          a, p.causal, p.scale);
 }
 
+template <int D>
+cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::BwdArgs a;
+  if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(flash_bwd_dkv_tc_kernel<D>,
+                         dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+                         attn_tc::kThreads, attn_tc::dkv_smem_bytes(D),
+                         stream, a, p.causal, p.scale);
+}
+
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
@@ -476,9 +541,13 @@ cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
     return attn_tc::launch(flash_bwd_dq_kernel<T, D>,
                            dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
                            kThreads, smem, stream, p);
-  return attn_tc::launch(flash_bwd_dkv_kernel<T, D>,
-                         dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
-                         kThreads, smem, stream, p);
+  // fp32 keeps the CUDA-core dK/dV; no bf16 call reaches it
+  if constexpr (dtype == 0)
+    return attn_tc::launch(flash_bwd_dkv_kernel<T, D>,
+                           dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+                           kThreads, smem, stream, p);
+  else
+    return run_dkv_tc<D>(p, stream);
 }
 
 }  // namespace
@@ -496,8 +565,23 @@ size_t rt_flash_smem_bytes(int kind, int dtype, int hd) {
 // per SM of K1's bf16 kernel at head_dim hd, as the CUDA runtime reports
 // them, into out[3]; the cudaError_t of the query.
 int rt_flash_fwd_usage(int hd, int* out) {
-  if (hd == 64) return attn_tc::usage(flash_fwd_tc_kernel<64>, 64, out);
-  if (hd == 128) return attn_tc::usage(flash_fwd_tc_kernel<128>, 128, out);
+  if (hd == 64)
+    return attn_tc::usage(flash_fwd_tc_kernel<64>,
+                          attn_tc::smem_bytes(64), out);
+  if (hd == 128)
+    return attn_tc::usage(flash_fwd_tc_kernel<128>,
+                          attn_tc::smem_bytes(128), out);
+  return cudaErrorInvalidValue;
+}
+
+// The same of K3's bf16 kernel.
+int rt_flash_dkv_usage(int hd, int* out) {
+  if (hd == 64)
+    return attn_tc::usage(flash_bwd_dkv_tc_kernel<64>,
+                          attn_tc::dkv_smem_bytes(64), out);
+  if (hd == 128)
+    return attn_tc::usage(flash_bwd_dkv_tc_kernel<128>,
+                          attn_tc::dkv_smem_bytes(128), out);
   return cudaErrorInvalidValue;
 }
 
@@ -506,9 +590,9 @@ int rt_flash_fwd_usage(int hd, int* out) {
 // (batch, seq, head) strides in elements of q, k and v, in that order; their
 // head_dim stride is 1.  dout, out, dk and dv are contiguous; lse and delta
 // are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  K1 on
-// bf16 needs the q, k and v pointers and strides on 16 bytes
-// (cudaErrorMisalignedAddress otherwise).  Returns the cudaError_t of the
-// launch.
+// bf16 needs the q, k and v pointers and strides on 16 bytes, K3 on bf16
+// those of q, k, v and dout (cudaErrorMisalignedAddress otherwise).
+// Returns the cudaError_t of the launch.
 int rt_flash_attention(int kind, int dtype, const void* q, const void* k,
                        const void* v, const void* dout, void* out, void* dk,
                        void* dv, void* lse, const void* delta,

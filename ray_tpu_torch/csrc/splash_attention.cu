@@ -40,12 +40,22 @@
 // fragments, so its products are the library's exactly.  It needs every
 // row of q, k and v on 16 bytes.
 //
+// K5-dKV on bf16 inputs is splash_bwd_dkv_tc_kernel: the tensor-core
+// dK/dV of attention_bwd_dkv_tc.cuh (K-stationary bf16 mma.sync tiles, a
+// cp.async ring of Q/dO tiles with their LSE and delta, P^T and dS^T in
+// registers).  Its walk is the block's transposed table entries for each
+// of the g query heads; partial entries take the causal rule.  It scales
+// each Q tile to q_s = bf16(q * scale) in shared memory once it lands and
+// rounds P and dS to bf16 for their products, as the library does, so
+// each product is one bf16 mma.  It needs every row of q, k, v and dout on
+// 16 bytes.
+//
 // What bounds them on this card: operations.  At the training shapes
 // (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
 // against a few bytes, far above the ~295 flops per byte where the tensor
-// cores, not the memory, become the limit.  K5-fwd on fp32, K5-dQ and
-// K5-dKV are the first, simple versions: the products run as fp32 FMAs on
-// the CUDA cores from shared memory, as K2 and K3 do
+// cores, not the memory, become the limit.  K5-fwd and K5-dKV on fp32,
+// and K5-dQ, are the first, simple versions: the products run as fp32
+// FMAs on the CUDA cores from shared memory, as K2 and K3 on fp32 do
 // (csrc/flash_attention.cu).  Their design:
 //   - a thread block holds 64 x 64 fp32 tiles in shared memory (rows padded
 //     by one word against bank conflicts), and a loop over the block's
@@ -60,8 +70,7 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - q_len and kv_len are multiples of 64 (the library's 128-row blocks),
 //     so there is no ragged edge.
-// Left for later: tensor-core tiles for K5-dQ and K5-dKV, TMA loads,
-// wgmma.
+// Left for later: tensor-core tiles for K5-dQ, TMA loads, wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -76,6 +85,7 @@
 
 #include <type_traits>
 
+#include "attention_bwd_dkv_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace {
@@ -390,9 +400,9 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
   }
 }
 
-// K5-dKV: grid (B * KVH, kv tiles), the first kv tile (the longest causal
-// list) first.  Tiles are transposed against K5-dQ: a thread's patch rows
-// are keys and its columns queries.
+// K5-dKV on fp32 inputs: grid (B * KVH, kv tiles), the first kv tile (the
+// longest causal list) first.  Tiles are transposed against K5-dQ: a
+// thread's patch rows are keys and its columns queries.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
   constexpr int LD = D + 1;
@@ -471,8 +481,77 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
   }
 }
 
+// K5-dKV's walk for attention_bwd_dkv_tc.cuh: the kv tile's transposed
+// table entries (q tile << 1) | partial for each query head of the group
+// in turn, heads with an empty list skipped; partial tiles take the causal
+// rule.
+struct SplashDkvWalk {
+  static constexpr bool kSplit = false;   // the library rounds P and dS
+  static constexpr bool kScaleQ = true;   // q_s = bf16(q * scale)
+  struct Cursor {
+    int gi, e, end;
+  };
+  const int* head_map;
+  const int* ptr;       // [U, kv tiles + 1]
+  const int* ent;
+  int h0, g, nkv, kt;
+  float scale;          // sm_scale rounded to bf16
+  // the entries [e0, e1) of query head h0 + gi at this kv tile
+  __device__ void list(int gi, int& e0, int& e1) const {
+    const int* l = ptr + __ldg(head_map + h0 + gi) * (nkv + 1) + kt;
+    e0 = __ldg(l);
+    e1 = __ldg(l + 1);
+  }
+  __device__ int count() const {
+    int n = 0;
+    for (int gi = 0; gi < g; ++gi) {
+      int e0, e1;
+      list(gi, e0, e1);
+      n += e1 - e0;
+    }
+    return n;
+  }
+  __device__ void skip_empty(Cursor& c) const {
+    while (c.e == c.end && c.gi + 1 < g) list(++c.gi, c.e, c.end);
+  }
+  __device__ Cursor first() const {
+    Cursor c{0, 0, 0};
+    list(0, c.e, c.end);
+    skip_empty(c);
+    return c;
+  }
+  __device__ void next(Cursor& c) const {
+    ++c.e;
+    skip_empty(c);
+  }
+  __device__ int head(const Cursor& c) const { return c.gi; }
+  __device__ int q_row(const Cursor& c) const {
+    return (__ldg(ent + c.e) >> 1) * kTile;
+  }
+  __device__ bool masked(const Cursor& c) const { return __ldg(ent + c.e) & 1; }
+  __device__ bool keep(int kv, int q) const { return kv <= q; }
+  __device__ float logit_scale() const { return 1.f; }
+  __device__ float q_scale() const { return scale; }
+  __device__ float dk_scale() const { return 1.f; }
+};
+
+// K5-dKV on bf16 inputs: grid (B * KVH, kv tiles), the first kv tile (the
+// longest causal list) first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    splash_bwd_dkv_tc_kernel(attn_tc::BwdArgs a, const int* head_map,
+                             const int* ptr, const int* ent, float scale) {
+  const int b = blockIdx.x / a.KVH, kvh = blockIdx.x % a.KVH;
+  const int g = a.H / a.KVH;
+  const int kt = blockIdx.y;
+  const SplashDkvWalk walk{head_map, ptr, ent, kvh * g, g,
+                           static_cast<int>(gridDim.y), kt, scale};
+  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile);
+}
+
 size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
+  if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
   switch (kind) {
@@ -493,6 +572,16 @@ cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
                          p.ptr, p.ent, p.scale);
 }
 
+template <int D>
+cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::BwdArgs a;
+  if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(splash_bwd_dkv_tc_kernel<D>,
+                         dim3(p.B * p.KVH, p.Skv / kTile), attn_tc::kThreads,
+                         attn_tc::dkv_smem_bytes(D), stream, a, p.head_map,
+                         p.ptr, p.ent, p.scale);
+}
+
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
@@ -510,9 +599,13 @@ cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
     return attn_tc::launch(splash_bwd_dq_kernel<T, D>,
                            dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
                            stream, p);
-  return attn_tc::launch(splash_bwd_dkv_kernel<T, D>,
-                         dim3(p.B * p.KVH, p.Skv / kTile), kThreads, smem,
-                         stream, p);
+  // fp32 keeps the CUDA-core dK/dV; no bf16 call reaches it
+  if constexpr (dtype == 0)
+    return attn_tc::launch(splash_bwd_dkv_kernel<T, D>,
+                           dim3(p.B * p.KVH, p.Skv / kTile), kThreads, smem,
+                           stream, p);
+  else
+    return run_dkv_tc<D>(p, stream);
 }
 
 }  // namespace
@@ -530,8 +623,23 @@ size_t rt_splash_smem_bytes(int kind, int dtype, int hd) {
 // per SM of K5-fwd's bf16 kernel at head_dim hd, as the CUDA runtime reports
 // them, into out[3]; the cudaError_t of the query.
 int rt_splash_fwd_usage(int hd, int* out) {
-  if (hd == 64) return attn_tc::usage(splash_fwd_tc_kernel<64>, 64, out);
-  if (hd == 128) return attn_tc::usage(splash_fwd_tc_kernel<128>, 128, out);
+  if (hd == 64)
+    return attn_tc::usage(splash_fwd_tc_kernel<64>,
+                          attn_tc::smem_bytes(64), out);
+  if (hd == 128)
+    return attn_tc::usage(splash_fwd_tc_kernel<128>,
+                          attn_tc::smem_bytes(128), out);
+  return cudaErrorInvalidValue;
+}
+
+// The same of K5-dKV's bf16 kernel.
+int rt_splash_dkv_usage(int hd, int* out) {
+  if (hd == 64)
+    return attn_tc::usage(splash_bwd_dkv_tc_kernel<64>,
+                          attn_tc::dkv_smem_bytes(64), out);
+  if (hd == 128)
+    return attn_tc::usage(splash_bwd_dkv_tc_kernel<128>,
+                          attn_tc::dkv_smem_bytes(128), out);
   return cudaErrorInvalidValue;
 }
 
@@ -543,9 +651,9 @@ int rt_splash_fwd_usage(int hd, int* out) {
 // table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
 // the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
 // rounded to the input dtype.  Pointers a kind does not use may be null.
-// K5-fwd on bf16 needs the q, k and v pointers and strides on 16 bytes
-// (cudaErrorMisalignedAddress otherwise).  Returns the cudaError_t of the
-// launch.
+// K5-fwd on bf16 needs the q, k and v pointers and strides on 16 bytes,
+// K5-dKV on bf16 those of q, k, v and dout (cudaErrorMisalignedAddress
+// otherwise).  Returns the cudaError_t of the launch.
 int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
                         const void* v, const void* dout, void* out, void* dk,
                         void* dv, void* lse, const void* delta,

@@ -15,7 +15,11 @@ Pallas kernels of the JAX package:
     q, k and v must then start every row on 16 bytes
     (``check_rows_aligned``); fp32 inputs take the CUDA-core kernel;
   - K2 ``flash_bwd_dq_cuda``: dQ (``_bwd_dq_kernel``);
-  - K3 ``flash_bwd_dkv_cuda``: dK and dV (``_bwd_dkv_kernel``).
+  - K3 ``flash_bwd_dkv_cuda``: dK and dV (``_bwd_dkv_kernel``).  On bf16
+    inputs it is the tensor-core dK/dV of
+    ``csrc/attention_bwd_dkv_tc.cuh``, which copies rows 16 bytes at a
+    time: q, k, v and dout must then start every row on 16 bytes; fp32
+    inputs take the CUDA-core kernel.
 
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward launches K1 and saves (q, k, v, o, lse); the backward computes
@@ -135,8 +139,9 @@ def _lib():
         lib.rt_flash_attention.restype = i
         lib.rt_flash_smem_bytes.argtypes = [i, i, i]
         lib.rt_flash_smem_bytes.restype = ctypes.c_size_t
-        lib.rt_flash_fwd_usage.argtypes = [i, ctypes.POINTER(i)]
-        lib.rt_flash_fwd_usage.restype = i
+        for fn in (lib.rt_flash_fwd_usage, lib.rt_flash_dkv_usage):
+            fn.argtypes = [i, ctypes.POINTER(i)]
+            fn.restype = i
         lib._rt_typed = True
     return lib
 
@@ -192,8 +197,9 @@ def _check(name: str, q, k, v, causal: bool, do=None, lse=None,
 def check_rows_aligned(name: str, **tensors: torch.Tensor) -> None:
     """Raise ValueError unless every row of each tensor starts on 16
     bytes: its data pointer and its (batch, seq, head) strides in bytes
-    are multiples of 16.  The bf16 forwards copy rows 16 bytes at a time;
-    a tensor that breaks the rule is refused, not copied."""
+    are multiples of 16.  The bf16 forwards and dK/dV kernels copy rows 16
+    bytes at a time; a tensor that breaks the rule is refused, not
+    copied."""
     for tname, t in tensors.items():
         esize = t.element_size()
         if t.data_ptr() % 16 or any(st * esize % 16 for st in t.stride()[:3]):
@@ -261,9 +267,11 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool,
                        sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dk, dv) [B, Skv, KVH, D] in k's dtype, each kv head's sum over
-    its query heads.  Every launch adds one to
-    ``flash_bwd_dkv_cuda.launches``."""
+    its query heads.  bf16 rows of q, k, v and do must start on 16 bytes.
+    Every launch adds one to ``flash_bwd_dkv_cuda.launches``."""
     _check("flash_bwd_dkv_cuda", q, k, v, causal, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("flash_bwd_dkv_cuda", q=q, k=k, v=v, dout=do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     _launch(_DKV, q, k, v, causal, sm_scale, dout=do, dk=dk, dv=dv,

@@ -13,7 +13,10 @@ table in three kernels of ``ray_tpu_torch/csrc/splash_attention.cu``:
     tensor-core forward it shares with K1 (``csrc/attention_fwd_tc.cuh``),
     which needs every row of q, k and v on 16 bytes;
   - K5-dQ ``splash_bwd_dq_cuda`` (``_flash_attention_dq_kernel``);
-  - K5-dKV ``splash_bwd_dkv_cuda`` (``_flash_attention_dkv_kernel``).
+  - K5-dKV ``splash_bwd_dkv_cuda`` (``_flash_attention_dkv_kernel``); on
+    bf16 inputs the tensor-core dK/dV it shares with K3
+    (``csrc/attention_bwd_dkv_tc.cuh``), which needs every row of q, k, v
+    and dout on 16 bytes.
 
 Semantics kept from the JAX side:
 
@@ -314,8 +317,9 @@ def _lib():
         lib.rt_splash_attention.restype = i
         lib.rt_splash_smem_bytes.argtypes = [i, i, i]
         lib.rt_splash_smem_bytes.restype = ctypes.c_size_t
-        lib.rt_splash_fwd_usage.argtypes = [i, ctypes.POINTER(i)]
-        lib.rt_splash_fwd_usage.restype = i
+        for fn in (lib.rt_splash_fwd_usage, lib.rt_splash_dkv_usage):
+            fn.argtypes = [i, ctypes.POINTER(i)]
+            fn.restype = i
         lib._rt_typed = True
     return lib
 
@@ -399,9 +403,11 @@ def splash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask: MultiHeadMask, *,
                         sm_scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5-dKV: (dk, dv) [B, Skv, KVH, D] in k's dtype, each kv head's sum
-    over its query heads.  Every launch adds one to
-    ``splash_bwd_dkv_cuda.launches``."""
+    over its query heads.  bf16 rows of q, k, v and do must start on 16
+    bytes.  Every launch adds one to ``splash_bwd_dkv_cuda.launches``."""
     _check("splash_bwd_dkv_cuda", q, k, v, mask, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("splash_bwd_dkv_cuda", q=q, k=k, v=v, dout=do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     _launch(_DKV, q, k, v, mask, sm_scale, dout=do, dk=dk, dv=dv, lse=lse,

@@ -13,7 +13,10 @@ more terms.
 The bf16 tensor-core forward (K1 on the card) is emulated here in plain
 torch and held against JAX's kernel at the tolerances the card's checks
 hold the kernel to against its plain version: o atol 2e-2 (both round o
-to bf16, 2^-8 relative), LSE atol 1e-4 (both sum in fp32).
+to bf16, 2^-8 relative), LSE atol 1e-4 (both sum in fp32).  So is the
+bf16 tensor-core dK/dV (K3 on the card), against JAX's _bwd: dK and dV
+atol 2e-2 (both round them to bf16), and at most SPLIT_DIFFERING of
+their elements may differ at all.
 """
 
 import numpy as np
@@ -24,12 +27,15 @@ import jax
 import jax.numpy as jnp
 
 from ray_tpu.ops.attention import attention as jax_attention
+from ray_tpu.ops.flash_attention import _bwd as jax_flash_bwd
 from ray_tpu.ops.flash_attention import _fwd as jax_flash_fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu_torch.ops import flash_attention as flash_mod
 from ray_tpu_torch.ops.attention import NEG_INF, attention, dense_attention
 from ray_tpu_torch.ops.flash_attention import (check_rows_aligned,
                                                flash_attention,
                                                flash_bwd_dkv_cuda,
+                                               flash_bwd_dkv_ref,
                                                flash_bwd_dq_cuda,
                                                flash_bwd_ref, flash_fwd_cuda,
                                                flash_fwd_ref)
@@ -290,3 +296,152 @@ def test_bf16_forward_row_alignment_rule():
         check_rows_aligned("fwd", q=q, k=narrow, v=v)
     # the same view of fp32 rows is aligned: 272-byte head stride
     check_rows_aligned("fwd", k=torch.zeros(2, 64, 4, 68)[..., :64])
+
+
+def _terms(x, split: bool):
+    """x as the tensor-core products take it: hi = bf16(x) and
+    lo = bf16(x - hi) with ``split``, else bf16(x) alone."""
+    hi = x.to(torch.bfloat16).float()
+    return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+
+def _tc_dkv_emulated(q, k, v, o, lse, do, causal: bool, scale: float,
+                     split: bool = True):
+    """K3's bf16 tensor-core arithmetic in plain torch (test only), as the
+    kernel runs it: each kv row walks the 64-row q tiles of every query
+    head of its group (the tiles before the causal diagonal, which the
+    kernel skips, are all masked here and add 0); S^T = K.q^T of the raw
+    bf16 q with fp32 sums; P^T = 2^(S^T c - LSE log2 e), c = scale
+    log2 e, 0 where masked; dS^T = P^T (dP^T - delta) with
+    dP^T = V.dO^T and delta = rowsum(dO o O); dV += P^T dO and
+    dK += dS^T q with P^T and dS^T split into hi + lo bf16 terms (without
+    ``split``, rounded to bf16 alone), fp32 sums; dK times scale once, the
+    group's heads summed in fp32.  [B, S, H, D] / [B, Skv, KVH, D] bf16
+    -> (dk, dv) bf16 [B, Skv, KVH, D]."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf, dof = (x.float().transpose(1, 2) for x in (q, do))
+    kf, vf = (x.float().repeat_interleave(g, 2).transpose(1, 2)
+              for x in (k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    lse2 = lse.float() * LOG2E
+    c = scale * LOG2E
+    dk = torch.zeros(b, h, skv, d)
+    dv = torch.zeros(b, h, skv, d)
+    kv_rows = torch.arange(skv)[:, None]
+    for q0 in range(0, sq, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, sq))
+        p = torch.exp2(kf @ qf[:, :, rows].transpose(-1, -2) * c
+                       - lse2[:, :, None, rows])
+        if causal:
+            p = torch.where(kv_rows <= rows[None, :], p, 0.0)
+        ds = p * (vf @ dof[:, :, rows].transpose(-1, -2)
+                  - delta[:, :, None, rows])
+        for t in _terms(p, split):
+            dv += t @ dof[:, :, rows]
+        for t in _terms(ds, split):
+            dk += t @ qf[:, :, rows]
+
+    def fold(x):
+        return x.view(b, kvh, g, skv, d).sum(2).transpose(1, 2).to(
+            torch.bfloat16)
+    return fold(dk * scale), fold(dv)
+
+
+def _jax3(x, h):
+    """[B, S, KVH, D] numpy -> [B * H, S, D] bf16, heads expanded."""
+    b, s, _, d = x.shape
+    x = np.repeat(x, h // x.shape[2], axis=2)
+    return jnp.asarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d),
+                       jnp.bfloat16)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,skv", [
+    (2, 128, 2, 2, 64, True, None), (1, 128, 2, 2, 128, True, None),
+    (1, 128, 4, 2, 64, True, None), (1, 100, 2, 2, 64, True, None),
+    (1, 100, 2, 1, 64, False, 160)],
+    ids=["hd64", "hd128", "gqa", "ragged", "full_gqa_sq_ne_skv"])
+def test_tc_dkv_arithmetic_matches_jax_flash(b, s, h, kvh, d, causal, skv):
+    """The emulation against JAX's _bwd (its _bwd_dkv_kernel) in interpret
+    mode on bf16 inputs, from JAX's own forward's o and LSE.  S = 100 ends
+    inside the second 64-row tile.  Per query head (k and v expanded, as
+    ops.attention expands them for JAX): dK and dV within BF16_TOL, and at
+    most SPLIT_DIFFERING of their elements differ at all, a bound that P
+    and dS rounded to bf16 alone fail.  With GQA, the group sums against
+    JAX's per-head gradients summed in fp32.  The plain version
+    flash_bwd_dkv_ref is held to the same outputs."""
+    skv = s if skv is None else skv
+    q, k, v = _qkv(8, b, s, h, kvh, d, skv)
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = _jax3(q, h), _jax3(k, h), _jax3(v, h), _jax3(do, h)
+    o3, lse3 = jax_flash_fwd(jq, jk, jv, causal, scale, s, skv, True)
+    _, dk3, dv3 = jax_flash_bwd(jq, jk, jv, o3, lse3, jdo, causal, scale,
+                                s, skv, True)
+
+    def port(x, n):
+        return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))
+                                ).view(b, h, n, -1)
+    o = port(o3, s).transpose(1, 2).to(torch.bfloat16)
+    lse = port(lse3, s)[..., 0]
+    want_dk, want_dv = (port(x, skv).transpose(1, 2) for x in (dk3, dv3))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tk_h, tv_h = (x.repeat_interleave(h // kvh, 2) for x in (tk, tv))
+
+    dk, dv = _tc_dkv_emulated(tq, tk_h, tv_h, o, lse, tdo, causal, scale)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                   atol=BF16_TOL)
+    share = torch.cat([(dk.float() != want_dk).flatten(),
+                       (dv.float() != want_dv).flatten()]).float().mean()
+    assert share <= SPLIT_DIFFERING
+    dk_r, dv_r = _tc_dkv_emulated(tq, tk_h, tv_h, o, lse, tdo, causal, scale,
+                                  split=False)
+    share = torch.cat([(dk_r.float() != want_dk).flatten(),
+                       (dv_r.float() != want_dv).flatten()]).float().mean()
+    assert share > SPLIT_DIFFERING
+
+    g = h // kvh
+    want_dk, want_dv = (x.view(b, skv, kvh, g, d).sum(3)
+                        for x in (want_dk, want_dv))
+    dk, dv = _tc_dkv_emulated(tq, tk, tv, o, lse, tdo, causal, scale)
+    ref_dk, ref_dv = flash_bwd_dkv_ref(tq, tk, tv, o, lse, tdo, causal,
+                                       scale)
+    for got in (dk, dv, ref_dk, ref_dv):
+        assert got.shape == (b, skv, kvh, d)
+    for got, want in ((dk, want_dk), (dv, want_dv), (ref_dk, want_dk),
+                      (ref_dv, want_dv)):
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                   atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bf16_dkv_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
+    """flash_bwd_dkv_cuda holds bf16 q, k, v and dout to the 16-byte row
+    rule before it launches (fp32 keeps the CUDA-core kernel, which reads
+    scalars).  The device check and the launch are stubbed out so that
+    the rule runs on CPU tensors."""
+    launched = []
+    monkeypatch.setattr(flash_mod, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(flash_mod, "_launch",
+                        lambda *a, **kw: launched.append(a[0]))
+    monkeypatch.setattr(flash_bwd_dkv_cuda, "launches", 0)
+    q, k, v = (torch.zeros(1, 64, 2, 64, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(1, 2, 64)
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    call = dict(causal=True, sm_scale=0.125)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError,
+                           match="every row of dout must start on 16"):
+            flash_bwd_dkv_cuda(q, k, v, shifted, lse, lse, **call)
+    else:
+        flash_bwd_dkv_cuda(q, k, v, shifted, lse, lse, **call)
+    flash_bwd_dkv_cuda(q, k, v, torch.zeros_like(q), lse, lse, **call)
+    n = 1 if dtype == torch.bfloat16 else 2
+    assert launched == [flash_mod._DKV] * n
+    assert flash_bwd_dkv_cuda.launches == n

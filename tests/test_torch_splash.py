@@ -17,7 +17,8 @@ most.  A port that skips any one of those roundings is off by 3e-2 to
 The bf16 tensor-core forward (K5-fwd on the card) is emulated here in
 plain torch and held against the library kernel at the tolerances the
 card's checks hold the kernel to against its plain version: o atol 2e-2,
-LSE atol 1e-4.
+LSE atol 1e-4.  So is the bf16 tensor-core dK/dV (K5-dKV on the card),
+against the library kernel's VJP: dK and dV atol 2e-2.
 """
 
 import functools
@@ -369,3 +370,144 @@ def test_tc_forward_arithmetic_matches_jax_splash(interpret, b, s, h, kvh,
     np.testing.assert_allclose(_f32(ref_o), want_o, atol=BF16_TOL)
     np.testing.assert_allclose(ref_lse.numpy(), np.asarray(want_lse),
                                atol=LSE_TOL)
+
+
+def _tc_dkv_emulated(q, k, v, o, lse, do, causal: bool, scale: float,
+                     rounded: bool = True):
+    """K5-dKV's bf16 tensor-core arithmetic in plain torch (test only), as
+    the kernel runs it: q_s = bf16(q * bf16(scale)); each kv row walks the
+    64-row q tiles of every query head of its group (tiles the table
+    skips are all masked here and add 0); S^T = K.q_s^T with fp32 sums;
+    P^T = 2^(S^T log2 e - LSE log2 e), 0 where masked;
+    dS^T = P^T (dP^T - delta) with dP^T = V.dO^T and
+    delta = rowsum(dO o O); dV += bf16(P^T) dO and dK += bf16(dS^T) q_s
+    (without ``rounded``, P^T and dS^T in fp32), fp32 sums, the group's
+    heads summed in fp32.  [B, S, H, D] / [B, Skv, KVH, D] bf16 ->
+    (dk, dv) bf16 [B, Skv, KVH, D]."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qs = (q * splash.dtype_scale(scale, q.dtype)).float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    kf, vf = (x.float().repeat_interleave(g, 2).transpose(1, 2)
+              for x in (k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    lse2 = lse.float() * LOG2E
+    dk = torch.zeros(b, h, skv, d)
+    dv = torch.zeros(b, h, skv, d)
+    kv_rows = torch.arange(skv)[:, None]
+
+    def r(x):
+        return x.to(torch.bfloat16).float() if rounded else x
+    for q0 in range(0, sq, splash.TILE):
+        rows = torch.arange(q0, q0 + splash.TILE)
+        p = torch.exp2(kf @ qs[:, :, rows].transpose(-1, -2) * LOG2E
+                       - lse2[:, :, None, rows])
+        if causal:
+            p = torch.where(kv_rows <= rows[None, :], p, 0.0)
+        ds = p * (vf @ dof[:, :, rows].transpose(-1, -2)
+                  - delta[:, :, None, rows])
+        dv += r(p) @ dof[:, :, rows]
+        dk += r(ds) @ qs[:, :, rows]
+
+    def fold(x):
+        return x.view(b, kvh, g, skv, d).sum(2).transpose(1, 2).to(
+            torch.bfloat16)
+    return fold(dk), fold(dv)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,skv,causal", [
+    (2, 256, 2, 2, 64, 256, True), (1, 128, 2, 2, 128, 128, True),
+    (1, 256, 4, 2, 64, 256, True), (1, 128, 2, 1, 64, 256, False)],
+    ids=["hd64", "hd128", "gqa", "full_gqa"])
+def test_tc_dkv_arithmetic_matches_jax_splash(interpret, b, s, h, kvh, d,
+                                              skv, causal):
+    """The emulation against the library kernel's VJP in interpret mode on
+    bf16 inputs, fed as ray_tpu/ops/splash.py feeds it (q * scale in
+    bf16, [H, S, D] per example, k and v expanded to q's heads), from the
+    library's own forward's o and LSE.  Per query head: dK and dV within
+    BF16_TOL, and at most SPLIT_DIFFERING of their elements differ at
+    all, a bound that P and dS kept in fp32 fail (the library rounds
+    them).  With GQA, the group sums against the library's per-head
+    gradients summed in fp32.  The plain version splash_bwd_dkv_ref is
+    held to the same outputs."""
+    q, k, v = _qkv(10, b, s, h, kvh, d, skv)
+    do = np.random.default_rng(11).standard_normal(q.shape).astype(
+        np.float32)
+    scale = d ** -0.5
+    kind = splash_attention_mask.CausalMask if causal else \
+        splash_attention_mask.FullMask
+    mask = splash_attention_mask.MultiHeadMask([kind((s, skv))] * h)
+    with_lse = splash_attention_kernel.make_splash_mha(
+        mask=mask, head_shards=1, q_seq_shards=1, save_residuals=True)
+    kernel = splash_attention_kernel.make_splash_mha(
+        mask=mask, head_shards=1, q_seq_shards=1)
+    jq, jk, jv, jdo = (jnp.asarray(np.repeat(x, h // x.shape[2], axis=2),
+                                   jnp.bfloat16).transpose(0, 2, 1, 3)
+                       for x in (q, k, v, do))
+    jo, (jlse,) = jax.vmap(with_lse)(jq * scale, jk, jv)
+    _, vjp = jax.vjp(jax.vmap(kernel), jq * scale, jk, jv)
+    _, jdk, jdv = vjp(jdo)
+    o = torch.tensor(_f32(jo).transpose(0, 2, 1, 3)).to(torch.bfloat16)
+    lse = torch.tensor(_f32(jlse))
+    want_dk, want_dv = (torch.tensor(_f32(x).transpose(0, 2, 1, 3))
+                        for x in (jdk, jdv))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tk_h, tv_h = (x.repeat_interleave(h // kvh, 2) for x in (tk, tv))
+
+    def share(dk, dv):
+        return float(torch.cat([(dk.float() != want_dk).flatten(),
+                                (dv.float() != want_dv).flatten()])
+                     .float().mean())
+    dk, dv = _tc_dkv_emulated(tq, tk_h, tv_h, o, lse, tdo, causal, scale)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        np.testing.assert_allclose(_f32(got), want.numpy(), atol=BF16_TOL)
+    assert share(dk, dv) <= SPLIT_DIFFERING
+    assert share(*_tc_dkv_emulated(tq, tk_h, tv_h, o, lse, tdo, causal,
+                                   scale, rounded=False)) > SPLIT_DIFFERING
+
+    g = h // kvh
+    want_dk, want_dv = (x.view(b, skv, kvh, g, d).sum(3)
+                        for x in (want_dk, want_dv))
+    dk, dv = _tc_dkv_emulated(tq, tk, tv, o, lse, tdo, causal, scale)
+    ref_dk, ref_dv = splash.splash_bwd_dkv_ref(
+        tq, tk, tv, o, lse, tdo, splash.make_mask(h, s, skv, causal), scale)
+    for got in (dk, dv, ref_dk, ref_dv):
+        assert got.shape == (b, skv, kvh, d)
+    for got, want in ((dk, want_dk), (dv, want_dv), (ref_dk, want_dk),
+                      (ref_dv, want_dv)):
+        np.testing.assert_allclose(_f32(got), want.numpy(), atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bf16_dkv_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
+    """splash_bwd_dkv_cuda holds bf16 q, k, v and dout to the 16-byte row
+    rule before it launches (fp32 keeps the CUDA-core kernel).  The
+    device check and the launch are stubbed out so that the rule runs on
+    CPU tensors."""
+    launched = []
+    monkeypatch.setattr(splash, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(splash, "_launch",
+                        lambda *a, **kw: launched.append(a[0]))
+    monkeypatch.setattr(splash.splash_bwd_dkv_cuda, "launches", 0)
+    q, k, v = (torch.zeros(1, 128, 2, 64, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(1, 2, 128)
+    mask = splash.make_mask(2, 128, 128, True)
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError,
+                           match="every row of dout must start on 16"):
+            splash.splash_bwd_dkv_cuda(q, k, v, shifted, lse, lse, mask,
+                                       sm_scale=0.125)
+    else:
+        splash.splash_bwd_dkv_cuda(q, k, v, shifted, lse, lse, mask,
+                                   sm_scale=0.125)
+    splash.splash_bwd_dkv_cuda(q, k, v, torch.zeros_like(q), lse, lse, mask,
+                               sm_scale=0.125)
+    n = 1 if dtype == torch.bfloat16 else 2
+    assert launched == [splash._DKV] * n
+    assert splash.splash_bwd_dkv_cuda.launches == n
