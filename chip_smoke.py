@@ -10,9 +10,9 @@ nvcc per source, all at once) and imports nothing of JAX or of the JAX
 package.  Phases, one JSON line each:
 
   1. device   the card's name and power limit, the kernel builds.
-  2. kernel   paged_attention at llama3-8b decode shapes against
-              paged_attention_ref: error, and kernel / plain / SDPA time
-              beside the least time the card could take.
+  2. kernel   paged_attention at llama3-8b and gptj-6b decode shapes
+              against paged_attention_ref: error, and kernel / plain /
+              SDPA time beside the least time the card could take.
   3. slice    llama3-8b at full width and depth, random bf16 weights
               from a seed, served by the paged LLMEngine: 16 requests
               from threads; every request's token count, the kernel's
@@ -22,22 +22,27 @@ package.  Phases, one JSON line each:
               model's dense prefill path.
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
-              (16 x 1024, 12 heads of 64, causal, bf16), at a GQA 32/8
-              head_dim-128 shape, at fp32 / full / ragged shapes, with
+              (16 x 1024, 12 heads of 64, causal, bf16) and at gptj-6b's
+              (2 x 1024, 16 heads of 256), at a GQA 32/8 head_dim-128
+              shape, at head_dim-256 GQA / ragged / full shapes, fp32 at
+              head_dim 256 (the forward; the backward must refuse), at
+              fp32 / full / ragged shapes, with
               q, k and v as strided views of one fused [B, S, H + 2 KVH,
               D] tensor, at S = 64 (one tile) and at 1 x 4096 (a long
               ring of kv tiles), and with rows whose logits all lie far
               below the exponent's range; kernel / plain / SDPA time
-              beside the bound, the forward's and the dK/dV kernel's
-              TFLOP/s, registers, local memory (spills) and blocks per
-              SM; the share of bf16 o, dK and dV elements that differ
-              from the plain versions at all.
+              beside the bound, each kernel's TFLOP/s, registers, local
+              memory (spills) and blocks per SM at head_dim 64, 128 and
+              256, the backward's sum beside SDPA's backward; the share
+              of bf16 o, dQ, dK and dV elements that differ from the
+              plain versions at all.
   5. splash   the splash kernels K5-fwd, K5-dQ and K5-dKV in the same
-              way at the same training shape, at GQA 32/8 head_dim 128
+              way at the same training shapes, at GQA 32/8 head_dim 128
               (2 x 2048), with a full mask (q 512, kv 1024), in fp32,
               from a fused tensor, at S = 128 (the library's shortest
-              length), at 1 x 4096 and with rows of very low logits; the
-              tiles the mask table visits against the dense count.
+              length), at 1 x 4096, with rows of very low logits and at
+              head_dim 256; the tiles the mask table visits against the
+              dense count.
   6. train    gpt-small at full width and depth with bench.py's
               settings (batch 16 x 1024, remat "dots", AdamW warmup 10 /
               decay 1000, attention_impl "flash"), random weights from
@@ -51,7 +56,12 @@ package.  Phases, one JSON line each:
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
-  8. kernels  one line listing every kernel of the port.
+  8. gptj     gptj-6b (16 heads of 256) at full width, depth cut to 2:
+              the train runs of phases 6 and 7 at batch 2 x 1024 for 3
+              steps each, and the engine of phase 3 serving 4 requests.
+  9. loss     chunked_lm_loss on bf16 tensors of the card against the
+              same call on the CPU.
+ 10. kernels  one line listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -105,9 +115,11 @@ FP32_FLOPS = 67e12
 # The bf16 forwards (tensor-core K1 and K5-fwd) against their plain
 # versions: both sum in fp32 and round o to bf16, so they may differ by
 # one bf16 ulp where the two fp32 values straddle a rounding boundary:
-# at most 2^-7 = 0.0078125 for |o| < 2.  The split P.V keeps P to ~16
-# bits, so the fp32 values agree to ~1e-5 relative and a flip at
-# |o| >= 2 is rare.
+# at most 2^-7 = 0.0078125 for |o| < 2, and one ulp of the element
+# (2^-6 in [2, 4)) above.  The split P.V keeps P to ~16 bits, so the
+# fp32 values agree to ~1e-5 relative and a flip at |o| >= 2 is rare; it
+# does occur where a row's softmax sits on one key of |v| >= 2 (the
+# low-logit case at head_dim 256).
 FWD_BF16_MAX_ERR = 2.0 ** -7
 # ... and at most this share of the bf16 o elements may differ from the
 # plain version at all (the CPU tests' SPLIT_DIFFERING): a forward that
@@ -123,7 +135,17 @@ FWD_BF16_DIFFERING = 0.01
 # dK and dV differ with the split, 41.7% with P and dS rounded to bf16
 # alone (max abs error 0.0156, inside ATOL: only this gate can tell).  At
 # the training shape the script checks that such a K3 (emulated in plain
-# torch) fails this gate.
+# torch) fails this gate.  The same gate holds bf16 K2's dQ: its reference
+# keeps dS in fp32 for dS.K and the kernel splits dS into hi + lo; a K2
+# with dS rounded to bf16 (emulated at the training shape) must fail it.
+# K5-dQ rounds dS as the library does: its share is reported.  Causal row
+# 0 of dQ is left out of both shares: it sees key 0 alone, where P = 1 and
+# dP - delta is the rounding residue of dO.v0 - rowsum(dO o O) (~1e-8),
+# noise in every version (1/64 of the elements at S = 64).  So are, in
+# the low-logit cases, the low rows (every 7th): their logits and LSE lie
+# near -190 (head_dim 64) to -380 (256), where fp32 rounds each by
+# ~1e-5, so their P = exp(s - LSE) differs between any two versions by
+# that much relative; their share is reported.
 BWD_BF16_DIFFERING = 0.01
 # Flash kernels against their plain versions: both sum in fp32.  In bf16
 # both round the outputs to bf16 (2^-8 relative), so ATOL = RTOL = 2e-2
@@ -138,6 +160,11 @@ FLASH_FP32_TOL = 1e-4
 LOSS_RTOL = 2e-3
 GRAD_NORM_RTOL = 3e-2
 TRAIN_STEPS = 20
+# gptj-6b (16 heads of 256) at full width: 2 of its 28 layers (950 M
+# parameters) keep the fp32 masters, grads and AdamW state near 15 GB
+# and the phase short
+GPTJ_LAYERS = 2
+GPTJ_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -213,18 +240,18 @@ def paged_bound(q, kv_pages, lengths, block_tables) -> dict:
 
 
 def tc_usage(family: str) -> dict:
-    """{"fwd" | "bwd_dkv": {head_dim: {"registers", "local_bytes",
-    "blocks_per_sm"}}} of the tensor-core forward and dK/dV kernels of
-    ``family`` ("flash" or "splash"), as the CUDA runtime reports them:
-    registers and local memory (spills and stack) per thread, and
-    resident blocks per SM."""
+    """{"fwd" | "bwd_dq" | "bwd_dkv": {head_dim: {"registers",
+    "local_bytes", "blocks_per_sm"}}} of the tensor-core forward, dQ and
+    dK/dV kernels of ``family`` ("flash" or "splash") at head_dim 64, 128
+    and 256, as the CUDA runtime reports them: registers and local memory
+    (spills and stack) per thread, and resident blocks per SM."""
     import ctypes
     from ray_tpu_torch.ops import flash_attention, splash
     lib = (flash_attention if family == "flash" else splash)._lib()
     out = {}
-    for kind, sym in (("fwd", "fwd"), ("bwd_dkv", "dkv")):
+    for kind, sym in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
         out[kind] = {}
-        for hd in (64, 128):
+        for hd in (64, 128, 256):
             u = (ctypes.c_int * 3)()
             err = getattr(lib, f"rt_{family}_{sym}_usage")(hd, u)
             check(err == 0, f"{family} {kind} usage query: cudaError {err}")
@@ -247,15 +274,17 @@ def compare(got, want, atol: float = ATOL, rtol: float = RTOL) -> dict:
 
 def coverage(dev, gen) -> list:
     """The kernel against the plain version at the other shapes it takes
-    (head_dim 64, GQA groups 1 and 8, pages of 16 and 128 positions, and
-    enough rows that the pages are not split), random lengths >= 1."""
+    (head_dim 64 and 256, GQA groups 1, 4 and 8, pages of 16 and 128
+    positions, and enough rows that the pages are not split), random
+    lengths >= 1."""
     import torch
     from ray_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                    paged_attention_ref)
     out = []
     for rows, heads, kvh, hd, ps, max_pages in (
             (5, 12, 12, 64, 16, 8), (3, 32, 4, 128, 128, 4),
-            (64, 8, 1, 64, 32, 6), (40, 32, 8, 128, 64, 16)):
+            (64, 8, 1, 64, 32, 6), (40, 32, 8, 128, 64, 16),
+            (3, 8, 2, 256, 16, 8), (6, 16, 4, 256, 32, 6)):
         num_pages = 1 + rows * max_pages
         perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
         tables = perm.reshape(rows, max_pages).to(torch.int32)
@@ -275,18 +304,16 @@ def coverage(dev, gen) -> list:
     return out
 
 
-def kernel_phase(dev) -> dict:
-    """paged_attention at llama3-8b decode shapes: 8 slots + the scratch
-    row, 32 heads over 8 kv heads, head_dim 128, 64-token pages, 16-page
-    tables (max_seq_len 1024), shuffled pages, lengths at page edges."""
+def paged_timed(dev, gen, rows: int, heads: int, kvh: int, hd: int,
+                ps: int, max_pages: int, lengths_l: list) -> dict:
+    """paged_attention on one decode shape, shuffled pages and the given
+    lengths: the kernel against the plain version (and against fp32),
+    kernel / plain / SDPA time beside the bound."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                    paged_attention_ref)
-    rows, heads, kvh, hd, ps, max_pages = 9, 32, 8, 128, 64, 16
     num_pages = 1 + rows * max_pages
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    lengths_l = [1, 63, 64, 65, 300, 1024, 511, 129, 700]
     perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
     tables = torch.zeros(rows, max_pages, dtype=torch.int32, device=dev)
     used = 0
@@ -295,7 +322,8 @@ def kernel_phase(dev) -> dict:
         tables[r, :np_] = perm[used:used + np_].to(torch.int32)
         used += np_
     lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
-    # 8 pool copies (8 x 38 MB) so timed calls do not hit in L2
+    # 8 pool copies (38 MB each at llama3-8b's shape, 85 MB at gptj-6b's)
+    # so timed calls do not hit in L2
     sets = []
     for _ in range(8):
         q = torch.randn(rows, heads, hd, generator=gen, device=dev
@@ -325,7 +353,6 @@ def kernel_phase(dev) -> dict:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=True)
     lib_out = sdpa(*sdpa_sets[0])[:, :, 0]
-    res["coverage"] = coverage(dev, gen)
     res["library_max_abs_err"] = float((lib_out.float() - fp32).abs().max())
     kernel_ms, kernel_host_ms = time_ms(paged_attention_cuda, sets)
     res.update(
@@ -339,12 +366,31 @@ def kernel_phase(dev) -> dict:
     return res
 
 
-def make_requests(vocab: int, n: int = 16):
+def kernel_phase(dev) -> dict:
+    """paged_attention at llama3-8b decode shapes: 8 slots + the scratch
+    row, 32 heads over 8 kv heads, head_dim 128, 64-token pages, 16-page
+    tables (max_seq_len 1024), shuffled pages, lengths at page edges; at
+    gptj-6b's (4 slots + the scratch row, 16 heads of 256, no GQA); and
+    the coverage shapes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res = paged_timed(dev, gen, 9, 32, 8, 128, 64, 16,
+                      [1, 63, 64, 65, 300, 1024, 511, 129, 700])
+    res["hd256"] = paged_timed(dev, gen, 5, 16, 16, 256, 64, 16,
+                               [1, 65, 300, 1024, 700])
+    res["coverage"] = coverage(dev, gen)
+    return res
+
+
+def make_requests(vocab: int, n: int = 16, new: tuple = (32, 64)):
+    """n requests from the seed: prompts of 17-300 tokens (the first two
+    17 and 300), new-token counts in [new[0], new[1]], request 5 (if any)
+    sampled at temperature 0.8 and the rest greedy."""
     import numpy as np
     rng = np.random.default_rng(SEED)
     lens = rng.integers(17, 301, size=n)
     lens[0], lens[1] = 17, 300
-    news = rng.integers(32, 65, size=n)
+    news = rng.integers(new[0], new[1] + 1, size=n)
     reqs = []
     for i in range(n):
         reqs.append(dict(prompt=rng.integers(0, vocab, size=int(lens[i])
@@ -408,7 +454,12 @@ def decode_step(engine) -> tuple:
     return start.elapsed_time(end) / k_steps, groups
 
 
-def slice_phase(dev) -> tuple:
+def slice_phase(dev, name: str = "llama3-8b", n_layers=None,
+                n_requests: int = 16, new: tuple = (32, 64),
+                num_slots: int = 8) -> tuple:
+    """The paged LLMEngine serving ``name`` (depth cut to ``n_layers``
+    where given) at full width with random bf16 weights: n_requests
+    requests from threads, checked as the module docstring says."""
     import torch
     from ray_tpu_torch.models.configs import get_config
     from ray_tpu_torch.models.convert import init_weights
@@ -417,17 +468,18 @@ def slice_phase(dev) -> tuple:
                                                    paged_attention_ref)
     from ray_tpu_torch.serve.llm_engine import LLMEngine
 
-    cfg = get_config("llama3-8b")
+    cfg = get_config(name, **({} if n_layers is None
+                              else dict(n_layers=n_layers)))
     t0 = time.perf_counter()
     model = GPT(cfg, device=dev, dtype=torch.bfloat16)
     init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    engine = LLMEngine(cfg, model, num_slots=8, page_size=64,
+    engine = LLMEngine(cfg, model, num_slots=num_slots, page_size=64,
                        max_seq_len=1024, block_size=16, top_k=50,
                        seed=SEED, device=dev)
     try:
-        reqs = make_requests(cfg.vocab_size)
+        reqs = make_requests(cfg.vocab_size, n_requests, new)
         t0 = time.perf_counter()
         engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
         warm_s = time.perf_counter() - t0
@@ -491,10 +543,11 @@ def slice_phase(dev) -> tuple:
 
     ttfts = sorted(r.time_to_first_token_s for r in results)
     out = {
-        "phase": "slice", "model": "llama3-8b", "params": cfg.num_params(),
+        "phase": "slice", "model": name, "params": cfg.num_params(),
         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-        "vocab": cfg.vocab_size, "num_slots": 8, "page_size": 64,
+        "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab_size, "num_slots": num_slots, "page_size": 64,
         "max_seq_len": 1024, "block_size": 16,
         "kv_pool_pages": engine.kv_pool_pages,
         "requests": len(reqs), "wall_s": wall,
@@ -507,7 +560,7 @@ def slice_phase(dev) -> tuple:
         "latency_p50_s": statistics.median(r.latency_s for r in results),
         "decode_step_ms": step_ms, "decode_step_device_ms": step_device,
         "device_busy_share": sum(step_device.values()) / step_ms,
-        "batch_occupancy": engine.stats.occupancy(8),
+        "batch_occupancy": engine.stats.occupancy(num_slots),
         "peak_mem_gb": peak_gb, "init_s": init_s, "warmup_s": warm_s,
         "real_pool_check": real, "teacher_forced": forced,
     }
@@ -626,6 +679,25 @@ def bf16_pds_share(q, k, v, o, lse, do, causal, scale, dk_r,
                            (mod._fold(dv, g).to(v.dtype), dv_r))
 
 
+def dq_pair(got, want, causal: bool) -> tuple:
+    """(got, want) dQ [B, S, H, D] without causal row 0, whose values are
+    noise in every version (see BWD_BF16_DIFFERING)."""
+    return (got[:, 1:], want[:, 1:]) if causal else (got, want)
+
+
+def bf16_ds_share(q, k, v, o, lse, do, causal, scale, dq_r) -> float:
+    """The share of dQ elements in which a K2 that rounds dS to bf16
+    before dS.K (plain torch on the plain version's dS) differs from the
+    plain version's dq_r: what BWD_BF16_DIFFERING has to catch."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as mod
+    k_, _, _, _, ds = mod._bwd_common(q, k, v, o, lse, do, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(torch.bfloat16).float(),
+                      k_.float()) * scale
+    del ds
+    return share_differing(dq_pair(dq.to(q.dtype), dq_r, causal))
+
+
 def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                    skv=None, timed: bool = False, fused: bool = False,
                    low: bool = False) -> dict:
@@ -707,24 +779,42 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                                        for c in res[kind].values())
     if dtype == torch.bfloat16:
         err = res[kinds[0]]["o"]["max_abs_err"]
-        check(err <= FWD_BF16_MAX_ERR,
+        # one bf16 ulp of each element, and at least 2^-7
+        ulp = torch.exp2(torch.floor(torch.log2(
+            o_r.float().abs().clamp_min(2.0 ** -126))) - 7)
+        over = float(((o.float() - o_r.float()).abs()
+                      - ulp.clamp_min(FWD_BF16_MAX_ERR)).max())
+        check(over <= 0,
               f"{kinds[0]} o is {err} from the plain version at "
-              f"{res['shape']} causal={causal}, over {FWD_BF16_MAX_ERR}")
+              f"{res['shape']} causal={causal}, over {FWD_BF16_MAX_ERR} "
+              f"(or one bf16 ulp of the element) by {over}")
         share = res[kinds[0]]["o"]["frac_differing"]
         check(share <= FWD_BF16_DIFFERING,
               f"{kinds[0]} o differs from the plain version in {share} of "
               f"its elements at {res['shape']} causal={causal}, over "
               f"{FWD_BF16_DIFFERING}")
-        # the share of dK and dV elements that differ at all: gated for
-        # K3 (fp32-faithful through the split), reported for K5-dKV
-        # (which rounds P and dS to bf16 as the library does)
-        share = share_differing((dk, dk_r), (dv, dv_r))
-        res[kinds[2]]["frac_differing"] = share
-        if family == "flash":
-            check(share <= BWD_BF16_DIFFERING,
-                  f"{kinds[2]} dK and dV differ from the plain version in "
-                  f"{share} of their elements at {res['shape']} "
-                  f"causal={causal}, over {BWD_BF16_DIFFERING}")
+        # the share of dQ, and of dK and dV, elements that differ at all:
+        # gated for K2 and K3 (fp32-faithful through the split), reported
+        # for K5-dQ and K5-dKV (which round dS, and P, to bf16 as the
+        # library does).  With ``low``, dQ's share is gated on the other
+        # rows and reported for the low rows (see BWD_BF16_DIFFERING)
+        dq_g, dq_rg = dq_pair(dq, dq_r, causal)
+        if low:
+            rows = torch.ones(dq.shape[1], dtype=torch.bool, device=dev)
+            rows[::7] = False
+            res[kinds[1]]["frac_differing_low_rows"] = share_differing(
+                (dq[:, ~rows], dq_r[:, ~rows]))
+            rows = rows[1:] if causal else rows
+            dq_g, dq_rg = dq_g[:, rows], dq_rg[:, rows]
+        for kind, pairs in ((kinds[1], ((dq_g, dq_rg),)),
+                            (kinds[2], ((dk, dk_r), (dv, dv_r)))):
+            share = share_differing(*pairs)
+            res[kind]["frac_differing"] = share
+            if family == "flash":
+                check(share <= BWD_BF16_DIFFERING,
+                      f"{kind} differs from the plain version in {share} "
+                      f"of its elements at {res['shape']} causal={causal}, "
+                      f"over {BWD_BF16_DIFFERING}")
     if family == "splash":
         from ray_tpu_torch.ops.splash import BLOCK, TILE, make_mask, \
             mask_table
@@ -753,6 +843,13 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                   f"a K3 with P and dS in bf16 differs in only {share} of "
                   f"dK and dV, within the {BWD_BF16_DIFFERING} gate that "
                   "should catch it")
+            torch.cuda.empty_cache()
+            share = bf16_ds_share(q, k, v, o, lse, do, causal, scale, dq_r)
+            res[kinds[1]]["bf16_ds_frac_differing"] = share
+            check(share > BWD_BF16_DIFFERING,
+                  f"a K2 with dS in bf16 differs in only {share} of dQ, "
+                  f"within the {BWD_BF16_DIFFERING} gate that should catch "
+                  "it")
             torch.cuda.empty_cache()
 
     outs = [fwd(q_, k_, v_) for q_, k_, v_, _ in sets]
@@ -797,21 +894,67 @@ def attention_case(dev, gen, family, b, sq, h, kvh, d, dtype, causal,
                          plain_ms=time_ms(ref, ref_args, reps=2)[0],
                          library_ms=lib, tflop_s=bound["flops"] / ms / 1e9,
                          **bound)
+    # the whole backward (dQ + dK/dV) against SDPA's, which computes all
+    # three gradients in one call
+    bwd_ms = res[kinds[1]]["ms"] + res[kinds[2]]["ms"]
+    res["backward"] = {"ms": bwd_ms, "library_ms": lib_bwd,
+                       "vs_library": bwd_ms / lib_bwd}
     res["library_note"] = ("SDPA forward for the forward kernel; SDPA "
                            "backward (dq, dk and dv together) for the dQ "
-                           "and dK/dV kernels")
+                           "and dK/dV kernels, and beside their sum")
+    return res
+
+
+def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
+                   h: int = 4, d: int = 256) -> dict:
+    """fp32 at head_dim 256: the CUDA-core forward against its plain
+    version; the backward kernels, whose fp32 tiles would need more
+    shared memory than a block may have, must refuse with a ValueError
+    that says so."""
+    import torch
+    scale = d ** -0.5
+    fwd, dq_k, dkv_k, ref_fwd, _, _ = kernel_fns(family, True, scale, h,
+                                                 sq, sq)
+    q, k, v, do = (torch.randn(b, sq, h, d, generator=gen, device=dev)
+                   for _ in range(4))
+    o, lse = fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_r, lse_r = ref_fwd(q, k, v)
+    res = {"shape": [b, sq, sq, h, h, d], "dtype": "torch.float32",
+           "o": compare(o, o_r, FLASH_FP32_TOL, FLASH_FP32_TOL),
+           "lse": compare(lse, lse_r, FLASH_FP32_TOL, FLASH_FP32_TOL)}
+    for name, c in (("o", res["o"]), ("lse", res["lse"])):
+        check(c["finite"] and c["within_tol"],
+              f"fp32 {family} forward {name} at head_dim {d} disagrees: {c}")
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    refused = {}
+    for name, fn in (("bwd_dq", dq_k), ("bwd_dkv", dkv_k)):
+        try:
+            fn(q, k, v, do, lse, delta)
+        except ValueError as e:
+            refused[name] = str(e)
+        check("shared memory" in refused.get(name, ""),
+              f"fp32 {family}_{name} at head_dim {d} did not refuse for "
+              f"shared memory: {refused.get(name)}")
+    res["refused"] = refused
     return res
 
 
 def flash_phase(dev) -> dict:
-    """The flash kernels at the training slice's shapes (timed), at a GQA
-    32/8 head_dim-128 shape with S not a multiple of the 64-row tiles,
-    and at fp32 / non-causal / q_len != kv_len shapes."""
+    """The flash kernels at the training slice's shapes and at gptj-6b's
+    (16 heads of 256, batch 2 x 1024), both timed; at a GQA 32/8
+    head_dim-128 shape with S not a multiple of the 64-row tiles, at fp32
+    / non-causal / q_len != kv_len shapes, and at head_dim 256 (GQA and
+    ragged, non-causal, low logits, and fp32, where only the forward
+    runs)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16, fp32 = torch.bfloat16, torch.float32
     at_slice = attention_case(dev, gen, "flash", 16, 1024, 12, 12, 64, bf16,
                               True, timed=True)
+    at_hd256 = attention_case(dev, gen, "flash", 2, 1024, 16, 16, 256, bf16,
+                              True, timed=True)
+    torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "flash", *c) for c in (
         (2, 2000, 32, 8, 128, bf16, True),
         (2, 200, 4, 2, 64, fp32, False, 137),
@@ -821,20 +964,29 @@ def flash_phase(dev) -> dict:
         (2, 64, 4, 2, 64, bf16, True),
         (1, 4096, 12, 12, 64, bf16, True),
         (2, 512, 4, 2, 64, bf16, True, None, False, False, True),
-        (2, 256, 8, 2, 128, bf16, False, None, False, False, True))]
-    return {"slice_shape": at_slice, "coverage": coverage,
+        (2, 256, 8, 2, 128, bf16, False, None, False, False, True),
+        (2, 200, 8, 2, 256, bf16, True),
+        (1, 256, 4, 4, 256, bf16, False, 320),
+        (2, 256, 4, 2, 256, bf16, True, None, False, False, True))]
+    return {"slice_shape": at_slice, "hd256_shape": at_hd256,
+            "coverage": coverage,
+            "fp32_hd256": fp32_wide_case(dev, gen, "flash"),
             "tc_kernel": tc_usage("flash")}
 
 
 def splash_phase(dev) -> dict:
-    """The splash kernels (K5) at the training slice's shapes (timed), at
-    a GQA 32/8 head_dim-128 shape, with a full mask and q_len != kv_len,
-    and in fp32; with the tiles the mask table visits."""
+    """The splash kernels (K5) at the training slice's shapes and at
+    gptj-6b's (timed), at a GQA 32/8 head_dim-128 shape, with a full mask
+    and q_len != kv_len, in fp32, and at head_dim 256 as the flash phase
+    runs it; with the tiles the mask table visits."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16, fp32 = torch.bfloat16, torch.float32
     at_slice = attention_case(dev, gen, "splash", 16, 1024, 12, 12, 64,
                               bf16, True, timed=True)
+    at_hd256 = attention_case(dev, gen, "splash", 2, 1024, 16, 16, 256,
+                              bf16, True, timed=True)
+    torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "splash", *c) for c in (
         (2, 2048, 32, 8, 128, bf16, True),
         (2, 512, 8, 8, 64, bf16, False, 1024),
@@ -843,18 +995,24 @@ def splash_phase(dev) -> dict:
         (2, 128, 4, 2, 64, bf16, True),
         (1, 4096, 12, 12, 64, bf16, True),
         (2, 512, 4, 2, 64, bf16, True, None, False, False, True),
-        (2, 256, 8, 2, 128, bf16, False, None, False, False, True))]
-    return {"slice_shape": at_slice, "coverage": coverage,
+        (2, 256, 8, 2, 128, bf16, False, None, False, False, True),
+        (2, 512, 8, 2, 256, bf16, True),
+        (1, 256, 4, 4, 256, bf16, False, 512),
+        (2, 256, 4, 2, 256, bf16, True, None, False, False, True))]
+    return {"slice_shape": at_slice, "hd256_shape": at_hd256,
+            "coverage": coverage,
+            "fp32_hd256": fp32_wide_case(dev, gen, "splash"),
             "tc_kernel": tc_usage("splash")}
 
 
 def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
                 name: str = "gpt-small", batch: int = 16, seq: int = 1024,
-                steps: int = TRAIN_STEPS) -> dict:
+                steps: int = TRAIN_STEPS, n_layers=None) -> dict:
     """bench.py's headline run on the port with ``attention_impl=impl``:
-    make_train over GPT at full width and depth, the dense lm_loss_fn
-    head, one fixed batch.  Its first step must agree with one step of
-    ``ref_impl`` from the same weights and batch."""
+    make_train over GPT at full width and depth (depth cut to
+    ``n_layers`` where given), the dense lm_loss_fn head, one fixed
+    batch.  Its first step must agree with one step of ``ref_impl`` from
+    the same weights and batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -865,6 +1023,8 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     from ray_tpu_torch.train.step import OptimizerConfig, make_train
 
     over = dict(max_seq_len=seq, remat=True)
+    if n_layers is not None:
+        over["n_layers"] = n_layers
     cfg = get_config(name, attention_impl=impl, **over)
     opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
     rng = np.random.default_rng(SEED)
@@ -977,6 +1137,64 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
             "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
 
 
+def gptj_phase(dev) -> dict:
+    """gptj-6b at full width (d_model 4096, 16 heads of 256, vocab 50400)
+    and depth GPTJ_LAYERS: a batch of 2 x 1024 trained through K1-K3
+    against the plain attention and through K5 against K1-K3 (each
+    GPTJ_STEPS steps after the parity step, under the train phase's
+    gates and launch counts), and the paged engine serving 4 requests
+    (prompts 17-300 tokens, 16-32 new tokens) through K4 at head_dim
+    256."""
+    import torch
+    out = {}
+    for impl, ref in (("flash", "xla"), ("splash", "flash")):
+        out[impl] = train_phase(dev, impl=impl, ref_impl=ref, name="gptj-6b",
+                                batch=2, seq=1024, steps=GPTJ_STEPS,
+                                n_layers=GPTJ_LAYERS)
+        torch.cuda.empty_cache()
+    out["serve"], _, _ = slice_phase(dev, "gptj-6b", n_layers=GPTJ_LAYERS,
+                                     n_requests=4, new=(16, 32),
+                                     num_slots=4)
+    return out
+
+
+def loss_check(dev) -> dict:
+    """chunked_lm_loss on bf16 CUDA tensors, whose chunk logits come from
+    torch.mm(..., out_dtype=torch.float32), against the same call on the
+    CPU (operands taken to fp32): hidden [2, 256, 128] bf16, a tied fp32
+    weight of a 4096-token vocab, z-loss 1e-4, chunks of 128, from the
+    seed.  The CPU test's bounds against JAX: the loss within 1e-5
+    relative, the weight gradient within 1e-3 of the largest, the hidden
+    gradient within 1e-3 of the largest plus 2^-7 of each element."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.ops.losses import chunked_lm_loss
+    rng = np.random.default_rng(SEED)
+    hidden = torch.from_numpy(rng.standard_normal((2, 256, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((4096, 128)) * 0.05).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, 4096, (2, 256)))
+    mask = torch.from_numpy((rng.random((2, 256)) < 0.8).astype(np.float32))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        h = hidden.to(d, copy=True).requires_grad_()
+        wt = w.to(d, copy=True).requires_grad_()
+        loss, _ = chunked_lm_loss(h, wt, labels.to(d), mask.to(d), 1e-4, 128,
+                                  transpose_weight=True)
+        loss.backward()
+        out.append((loss.item(), h.grad.float().cpu(), wt.grad.cpu()))
+    (lg, gh, gw), (lw, wh, ww) = out
+    res = {"loss_rel": abs(lg - lw) / abs(lw),
+           "grad_w_rel": float((gw - ww).abs().max() / ww.abs().max()),
+           "grad_h_over": float(((gh - wh).abs() - 2.0 ** -7 * wh.abs()
+                                 ).max() / wh.abs().max())}
+    check(res["loss_rel"] <= 1e-5 and res["grad_w_rel"] <= 1e-3
+          and res["grad_h_over"] <= 1e-3,
+          f"chunked_lm_loss on the card disagrees with the CPU: {res}")
+    return res
+
+
 def main() -> int:
     if not (ROOT / "ray_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py runs from a checkout that holds ray_tpu_torch/",
@@ -1031,30 +1249,45 @@ def main() -> int:
 
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
+    torch.cuda.empty_cache()
 
+    gptj = gptj_phase(dev)
+    emit({"phase": "gptj", **gptj})
+    torch.cuda.empty_cache()
+
+    loss = loss_check(dev)
+    emit({"phase": "loss", **loss})
+
+    wide = kern["hd256"]
     rows = [{
         "name": "paged_attention", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches,
-        "max_abs_err": max([kern["max_abs_err"], real_err]
+        "max_abs_err": max([kern["max_abs_err"], real_err,
+                            wide["max_abs_err"]]
                            + [c["max_abs_err"] for c in kern["coverage"]]),
         "ms": kern["kernel_ms"], "plain_ms": kern["ref_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]
+        "library_ms": kern["library_ms"],
+        "hd256": {"ms": wide["kernel_ms"], "plain_ms": wide["ref_ms"],
+                  "bound_ms": wide["bound_ms"],
+                  "library_ms": wide["library_ms"]}}]
     for phase, run, source, replaced in (
             (flash, train, FLASH_SOURCE, FLASH_REPLACES),
             (splash, splash_train, SPLASH_SOURCE, SPLASH_REPLACES)):
         at_slice = phase["slice_shape"]
         for kind, replaces in replaced.items():
-            r = at_slice[kind]
+            r, w = at_slice[kind], phase["hd256_shape"][kind]
             rows.append({
                 "name": kind, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": run["launches"][kind],
-                "max_abs_err": max([r["max_abs_err"]] + [
+                "max_abs_err": max([r["max_abs_err"], w["max_abs_err"]] + [
                     c[kind]["max_abs_err"] for c in phase["coverage"]]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]})
+                "library_ms": r["library_ms"],
+                "hd256": {key: w[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "tflop_s")}})
             tc = phase["tc_kernel"].get(kind.split("_", 1)[1])
             if tc is not None:
                 rows[-1].update(tflop_s=r["tflop_s"], **{
@@ -1069,7 +1302,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "kernel": kern, "slice": sl, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
-         **kernels}, indent=1))
+         "gptj": gptj, "loss": loss, **kernels}, indent=1))
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

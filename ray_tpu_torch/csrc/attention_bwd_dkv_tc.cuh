@@ -20,7 +20,9 @@
 //     swizzled bf16 tiles by 16-byte cp.async; at head_dim 64 their
 //     m16k16 A fragments stay in registers, at head_dim 128 (where the
 //     dK and dV accumulators take 128 registers) each k-step re-reads
-//     them by ldmatrix;
+//     them by ldmatrix.  At head_dim 256 a block accumulates half of the
+//     columns of dK and dV (the grid's z index), so that the accumulators
+//     stay at 128 registers; both halves compute S^T and dP^T in full;
 //   - (Q, dO) tile pairs stream through a ring of kBwdStages stages by
 //     16-byte cp.async, each with its 64 LSE and 64 delta values (one
 //     4-byte copy per thread); the next pair's copy is in flight while
@@ -52,19 +54,6 @@ namespace attn_tc {
 
 constexpr int kBwdStages = 2;   // (Q, dO, LSE, delta) sets in the ring
 
-struct BwdArgs {
-  const bf16* q;       // [B, Sq, H, D], strided, last dim contiguous
-  const bf16* k;       // [B, Skv, KVH, D], strided
-  const bf16* v;       // [B, Skv, KVH, D], strided
-  const bf16* dout;    // [B, Sq, H, D] contiguous
-  bf16* dk;            // [B, Skv, KVH, D] contiguous
-  bf16* dv;            // [B, Skv, KVH, D] contiguous
-  const float* lse;    // [B, H, Sq]
-  const float* delta;  // [B, H, Sq]
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  int B, H, KVH, Sq, Skv;
-};
-
 // Bytes of one ring stage at head_dim d: the Q and dO tiles (bf16), then
 // the tile's 64 LSE and 64 delta values (fp32).
 __host__ __device__ constexpr size_t bwd_stage_bytes(int d) {
@@ -79,45 +68,15 @@ inline size_t dkv_smem_bytes(int d) {
          kBwdStages * bwd_stage_bytes(d);
 }
 
-// The backward's arguments from a kernel file's launch parameters P
-// (fields named as BwdArgs's).  False when a row of q, k, v or dout would
-// not start on 16 bytes.
-template <int D, class P>
-inline bool make_bwd_args(const P& p, BwdArgs& a) {
-  a = BwdArgs{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
-              static_cast<const bf16*>(p.v),
-              static_cast<const bf16*>(p.dout), static_cast<bf16*>(p.dk),
-              static_cast<bf16*>(p.dv), p.lse, p.delta,
-              p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh, p.v_sb,
-              p.v_ss, p.v_sh, p.B, p.H, p.KVH, p.Sq, p.Skv};
-  const long long o_ss = static_cast<long long>(p.H) * D;
-  return rows_aligned(p.q, p.q_sb, p.q_ss, p.q_sh) &&
-         rows_aligned(p.k, p.k_sb, p.k_ss, p.k_sh) &&
-         rows_aligned(p.v, p.v_sb, p.v_ss, p.v_sh) &&
-         rows_aligned(p.dout, o_ss * p.Sq, o_ss, D);
-}
-
-// Multiply the 16-byte chunks of a [64, D] tile that this thread copied
-// with load_tile by s, rounding to bf16 (K5-dKV's q_s = bf16(q * scale)).
+// Columns of dK and dV one block accumulates at head_dim D: all of them
+// up to 128; half at 256, where the two 16 x 256 fp32 accumulators alone
+// would take 256 registers a thread (the grid's z index picks the half,
+// and both halves compute S^T and dP^T over the full head_dim).
 template <int D>
-__device__ __forceinline__ void scale_own_chunks(bf16* tile, float s) {
-  constexpr int kChunks = D / 8, kPass = kThreads / kChunks;
-  const int r = threadIdx.x / kChunks, ch = threadIdx.x % kChunks;
-#pragma unroll
-  for (int i = 0; i < kTile / kPass; ++i) {
-    uint4* p = reinterpret_cast<uint4*>(tile + swz<D>(r + i * kPass, ch * 8));
-    uint4 x = *p;
-    uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(as_bf162(w[e]));
-      w[e] = as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
-    }
-    *p = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
+constexpr int kDkvCols = D > 128 ? D / 2 : D;
 
-// dK and dV of the kv tile starting at row k0 of kv head kvh of batch b.
+// dK and dV, columns [dc0, dc0 + kDkvCols<D>), of the kv tile starting at
+// row k0 of kv head kvh of batch b.
 // Walk provides:
 //   Cursor                     a position in the block's walk;
 //   count()                    the (query head, q tile) items to visit;
@@ -134,15 +93,16 @@ __device__ __forceinline__ void scale_own_chunks(bf16* tile, float s) {
 // A masked score gives P = 0 exactly, and so dS = 0 (a select, not -inf:
 // the splash mask value times log2 e overflows fp32).
 // The kernel launches kThreads threads and dkv_smem_bytes(D) of dynamic
-// shared memory per block.
+// shared memory per block, D / kDkvCols<D> blocks along the grid's z.
 template <int D, class Walk>
 __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
-                                          int b, int kvh, int k0) {
+                                          int b, int kvh, int k0, int dc0) {
   static_assert(D % 16 == 0 && (kTile * D / 8) % kThreads == 0, "head_dim");
   static_assert(kThreads == 2 * kTile, "one LSE or delta word per thread");
   constexpr int kTileElems = kTile * D;
   constexpr int kStageBytes = static_cast<int>(bwd_stage_bytes(D));
   constexpr bool kKVRegs = D <= 64;   // K, V A fragments in registers
+  constexpr int kCols = kDkvCols<D>;
   extern __shared__ __align__(128) unsigned char attn_tc_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(attn_tc_smem);
   bf16* Vs = Ks + kTileElems;
@@ -189,26 +149,27 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
   // c[3]); its columns are 2 * (lane % 4) and the next, in every n8 tile
   const int kv0 = k0 + warp * 16 + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  // byte offsets of this lane's ldmatrix rows in a tile: the A fragment of
-  // this warp's K or V rows at k-step kk; the B fragment of Q or dO rows
-  // for S^T and dP^T at k-step kk (16 q rows ch add ch * 16 rows); the
-  // transposed B fragment of dO or Q rows for dV and dK at d pair dp (the
-  // k-step ch adds ch * 16 rows)
-  uint32_t aoff[D / 16], boff[D / 16], toff[D / 16];
+  // byte offsets of this lane's ldmatrix rows in a tile (steps 0-3; see
+  // step_off): the A fragment of this warp's K or V rows at k-step kk; the
+  // B fragment of Q or dO rows for S^T and dP^T at k-step kk (16 q rows ch
+  // add ch * 16 rows); the transposed B fragment of dO or Q rows for dV
+  // and dK at d pair dp of this block's columns (the k-step ch adds
+  // ch * 16 rows; column dc0 adds 2 dc0 bytes, a multiple of 128)
+  uint32_t aoff[4], boff[4], toff[4];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
+  for (int i = 0; i < 4; ++i) {
     aoff[i] = 2 * swz<D>(warp * 16 + (lane & 15), i * 16 + ((lane >> 4) << 3));
     boff[i] = 2 * swz<D>((lane & 7) + ((lane >> 4) << 3),
                          i * 16 + (((lane >> 3) & 1) << 3));
     toff[i] = 2 * swz<D>((lane & 7) + (((lane >> 3) & 1) << 3),
-                         i * 16 + ((lane >> 4) << 3));
+                         i * 16 + ((lane >> 4) << 3)) + 2 * dc0;
   }
   const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Vs);
   const uint32_t ring_addr = smem_addr(ring);
   uint32_t kf[kKVRegs ? D / 16 : 1][4], vf[kKVRegs ? D / 16 : 1][4];
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[kCols / 8][4], dv[kCols / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < kCols / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
   const float c = walk.logit_scale() * kLog2e;
@@ -235,8 +196,8 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
       if (j == 0) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          ldsm4(kf[kk], ks_addr + aoff[kk]);
-          ldsm4(vf[kk], vs_addr + aoff[kk]);
+          ldsm4(kf[kk], ks_addr + step_off(aoff, kk));
+          ldsm4(vf[kk], vs_addr + step_off(aoff, kk));
         }
       }
     }
@@ -264,11 +225,11 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
             va[e] = vf[kk][e];
           }
         } else {
-          ldsm4(ka, ks_addr + aoff[kk]);
-          ldsm4(va, vs_addr + aoff[kk]);
+          ldsm4(ka, ks_addr + step_off(aoff, kk));
+          ldsm4(va, vs_addr + step_off(aoff, kk));
         }
-        ldsm4(qb, qs + boff[kk] + ch * 32 * D);
-        ldsm4(ob, os + boff[kk] + ch * 32 * D);
+        ldsm4(qb, qs + step_off(boff, kk) + ch * 32 * D);
+        ldsm4(ob, os + step_off(boff, kk) + ch * 32 * D);
         mma(s[0], ka, qb[0], qb[1]);
         mma(s[1], ka, qb[2], qb[3]);
         mma(dp[0], va, ob[0], ob[1]);
@@ -310,10 +271,10 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
         }
       }
 #pragma unroll
-      for (int dpair = 0; dpair < D / 16; ++dpair) {
+      for (int dpair = 0; dpair < kCols / 16; ++dpair) {
         uint32_t ob[4], qb[4];
-        ldsm4_t(ob, os + toff[dpair] + ch * 32 * D);
-        ldsm4_t(qb, qs + toff[dpair] + ch * 32 * D);
+        ldsm4_t(ob, os + step_off(toff, dpair) + ch * 32 * D);
+        ldsm4_t(qb, qs + step_off(toff, dpair) + ch * 32 * D);
         mma(dv[2 * dpair], ph, ob[0], ob[1]);
         mma(dv[2 * dpair + 1], ph, ob[2], ob[3]);
         mma(dk[2 * dpair], dh, qb[0], qb[1]);
@@ -332,24 +293,26 @@ __device__ __forceinline__ void dkv_block(const BwdArgs& a, const Walk& walk,
   cp_async_wait<0>();
   __syncthreads();
 
-  // dK and dV into this warp's own 16 rows of the K and V tiles, then out
+  // this block's columns of dK and dV into this warp's own 16 rows of the
+  // K and V tiles, then out
   const float sk = walk.dk_scale();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int lr = warp * 16 + (lane >> 2) + r * 8;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(Ks + swz<D>(lr, i * 8 + col0)) =
+    for (int i = 0; i < kCols / 8; ++i) {
+      const int col = dc0 + i * 8 + col0;
+      *reinterpret_cast<__nv_bfloat162*>(Ks + swz<D>(lr, col)) =
           __floats2bfloat162_rn(dk[i][2 * r] * sk, dk[i][2 * r + 1] * sk);
-      *reinterpret_cast<__nv_bfloat162*>(Vs + swz<D>(lr, i * 8 + col0)) =
+      *reinterpret_cast<__nv_bfloat162*>(Vs + swz<D>(lr, col)) =
           __floats2bfloat162_rn(dv[i][2 * r], dv[i][2 * r + 1]);
     }
   }
   __syncwarp();
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = kCols / 8;
 #pragma unroll
   for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, ch = i % kChunks;
+    const int r = i / kChunks, ch = dc0 / 8 + i % kChunks;
     const int row = k0 + warp * 16 + r;
     if (row < a.Skv) {
       const long long off =

@@ -18,7 +18,9 @@
 // their way:
 //   - four warps each own 16 q rows; S = Q.K^T and O += P.V are
 //     mma.sync.m16n8k16 bf16 products with fp32 accumulators, their
-//     operands read by ldmatrix (ldmatrix.trans for V);
+//     operands read by ldmatrix (ldmatrix.trans for V).  Q's fragments
+//     stay in registers up to head_dim 128; at 256 (a 128-register
+//     accumulator) each k-step re-reads them;
 //   - Q is copied once; K and V tiles stream through a ring of kStages
 //     bf16 tile pairs by 16-byte cp.async, the next kStages - 1 tiles'
 //     copies in flight while this tile's products run; rows past the
@@ -91,7 +93,8 @@ inline bool make_args(const P& p, Args& a) {
 //   masked(j, q0)              whether that tile needs the element mask;
 //   keep(row, col)             the element mask;
 //   logit_scale()              the logit of a product q.k is q.k times it;
-//   prepare_q(qf)              a pass over the Q fragments once loaded.
+//   prepare_q(qf)              a pass over Q fragments as they are loaded
+//                              (once, or at each re-read at head_dim 256).
 // A masked score enters the softmax as -inf, so it adds exactly 0; the
 // reference's finite mask value gives the same result wherever a row has
 // a key, which every row of the masks the port builds has.
@@ -130,19 +133,25 @@ __device__ __forceinline__ void forward_block(const Args& a, const Walk& walk,
   // c[3]); its columns are 2 * (lane % 4) and the next, in every n8 tile
   const int row0 = q0 + warp * 16 + (lane >> 2);
   const int col0 = 2 * (lane & 3);
-  uint32_t qf[D / 16][4];
+  // Q's A fragments stay in registers up to head_dim 128; at 256, where
+  // the accumulator alone takes 128 registers, each k-step re-reads them
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
   float acc[D / 8][4];
-  // byte offsets of this lane's ldmatrix rows in a tile: K's at k-step kk
-  // (n8 pair np adds np * 16 rows), V's at d pair dp (k-step kk adds
-  // kk * 16 rows); the rest of each address is a constant
-  uint32_t koff[D / 16], voff[D / 16];
+  // byte offsets of this lane's ldmatrix rows in a tile (steps 0-3; see
+  // step_off): Q's A fragment at k-step kk; K's at k-step kk (n8 pair np
+  // adds np * 16 rows), V's at d pair dp (k-step kk adds kk * 16 rows);
+  // the rest of each address is a constant
+  uint32_t qoff[4], koff[4], voff[4];
 #pragma unroll
-  for (int i = 0; i < D / 16; ++i) {
+  for (int i = 0; i < 4; ++i) {
+    qoff[i] = 2 * swz<D>(warp * 16 + (lane & 15), i * 16 + ((lane >> 4) << 3));
     koff[i] = 2 * swz<D>((lane & 7) + ((lane >> 4) << 3),
                          i * 16 + (((lane >> 3) & 1) << 3));
     voff[i] = 2 * swz<D>((lane & 7) + (((lane >> 3) & 1) << 3),
                          i * 16 + ((lane >> 4) << 3));
   }
+  const uint32_t qs_addr = smem_addr(Qs);
   const uint32_t ring_addr = smem_addr(ring);
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
@@ -167,12 +176,13 @@ __device__ __forceinline__ void forward_block(const Args& a, const Walk& walk,
       load_tile<D>(st + kTileElems, v, a.v_ss, k1, a.Skv);
     }
     cp_async_commit();
-    if (j == 0) {
+    if constexpr (kQRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm4(qf[kk], smem_addr(Qs + swz<D>(warp * 16 + (lane & 15),
-                                            kk * 16 + ((lane >> 4) << 3))));
-      walk.prepare_q(qf);
+        for (int kk = 0; kk < D / 16; ++kk)
+          ldsm4(qf[kk], qs_addr + step_off(qoff, kk));
+        walk.prepare_q(qf);
+      }
     }
     const uint32_t ks = ring_addr + (j % kStages) * 4 * kTileElems;
     const uint32_t vs = ks + 2 * kTileElems;
@@ -184,14 +194,23 @@ __device__ __forceinline__ void forward_block(const Args& a, const Walk& walk,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[1][4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[0][e] = qf[kk][e];
+      } else {
+        ldsm4(qa[0], qs_addr + step_off(qoff, kk));
+        walk.prepare_q(qa);
+      }
 #pragma unroll
       for (int np = 0; np < kTile / 16; ++np) {
         uint32_t kb[4];
-        ldsm4(kb, ks + koff[kk] + np * 32 * D);
-        mma(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        ldsm4(kb, ks + step_off(koff, kk) + np * 32 * D);
+        mma(s[2 * np], qa[0], kb[0], kb[1]);
+        mma(s[2 * np + 1], qa[0], kb[2], kb[3]);
       }
+    }
 
     // the element mask, where the tile needs it
     if (walk.masked(j, q0)) {
@@ -246,7 +265,7 @@ __device__ __forceinline__ void forward_block(const Args& a, const Walk& walk,
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vb[4];
-        ldsm4_t(vb, vs + voff[dp] + kk * 32 * D);
+        ldsm4_t(vb, vs + step_off(voff, dp) + kk * 32 * D);
         mma(acc[2 * dp], ph, vb[0], vb[1]);
         mma(acc[2 * dp + 1], ph, vb[2], vb[3]);
         mma(acc[2 * dp], pl, vb[0], vb[1]);

@@ -1,10 +1,12 @@
 // Primitives of the tensor-core attention kernels for Hopper (sm_90a),
-// shared by the forward (attention_fwd_tc.cuh: K1, K5-fwd) and the dK/dV
-// backward (attention_bwd_dkv_tc.cuh: K3, K5-dKV): the tile shape, the
-// XOR swizzle of bf16 tiles in shared memory, 16-byte cp.async copies,
-// ldmatrix, the m16n8k16 bf16 mma with fp32 accumulators, bf16x2 packing,
-// the ex2 exponent and the hi/lo split of fp32 values into two bf16 terms.
-// Each kernel header builds its loop from these; none holds a kernel.
+// shared by the forward (attention_fwd_tc.cuh: K1, K5-fwd), the dK/dV
+// backward (attention_bwd_dkv_tc.cuh: K3, K5-dKV) and the dQ backward
+// (attention_bwd_dq_tc.cuh: K2, K5-dQ): the tile shape, the XOR swizzle
+// of bf16 tiles in shared memory, 16-byte cp.async copies, ldmatrix, the
+// m16n8k16 bf16 mma with fp32 accumulators, bf16x2 packing, the ex2
+// exponent, the hi/lo split of fp32 values into two bf16 terms, and the
+// two backward kernels' arguments.  Each kernel header builds its loop
+// from these; none holds a kernel.
 
 #pragma once
 
@@ -75,6 +77,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 template <int D>
 __device__ __forceinline__ int swz(int row, int col) {
   return row * D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+}
+
+// The byte offset of a lane's ldmatrix row at 16-column step i of a
+// swizzled tile, from those of steps 0-3 (o[i] for columns i * 16 on):
+// the swizzle permutes 16-byte chunks only within groups of eight, so
+// step i + 4 lies 128 bytes past step i.  With i known at compile time
+// this is one immediate, and a block keeps four offsets, not D / 16.
+__device__ __forceinline__ uint32_t step_off(const uint32_t (&o)[4], int i) {
+  return o[i & 3] + (i >> 2) * 128;
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -152,30 +163,92 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
 // Queue the copy of rows [row0, row0 + 64) of one head (src points at its
 // row 0, rows row_stride elements apart) into a swizzled [64, D] tile;
 // rows at or past n are zero-filled.  Thread t copies 16-byte chunk
-// t % (D / 8) of rows t / (D / 8) + i * kPass: one base address and fixed
-// steps, and a row test only in a tile that crosses n.
+// t % (D / 8) of rows t / (D / 8) + i * kPass: a few base addresses and
+// fixed steps, and a row test only in a tile that crosses n.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int row0,
                                           int n) {
   constexpr int kChunks = D / 8;              // 16-byte chunks of a row
-  constexpr int kPass = kThreads / kChunks;   // rows per pass, a multiple
-                                              // of 8: the swizzle repeats
+  constexpr int kPass = kThreads / kChunks;   // rows per pass
+  // passes per period of the swizzle (8 rows): 1 up to head_dim 128,
+  // where every pass starts on the same swizzle; 2 at head_dim 256
+  constexpr int kRep = kPass >= 8 ? 1 : 8 / kPass;
+  static_assert(kPass % 8 == 0 || 8 % kPass == 0, "rows per pass");
   const int r = threadIdx.x / kChunks, ch = threadIdx.x % kChunks;
   const bf16* g = src + (row0 + r) * row_stride + ch * 8;
   const long long step = kPass * row_stride;
-  const uint32_t d = smem_addr(dst + swz<D>(r, ch * 8));
+  uint32_t d[kRep];
+#pragma unroll
+  for (int i = 0; i < kRep; ++i)
+    d[i] = smem_addr(dst + swz<D>(r + i * kPass, ch * 8));
+  auto at = [&](int i) {
+    return d[i % kRep] + (i / kRep) * kRep * kPass * D * 2;
+  };
   if (row0 + kTile <= n) {
 #pragma unroll
-    for (int i = 0; i < kTile / kPass; ++i)
-      cp_async16(d + i * kPass * D * 2, g + i * step, 16);
+    for (int i = 0; i < kTile / kPass; ++i) cp_async16(at(i), g + i * step, 16);
   } else {
 #pragma unroll
     for (int i = 0; i < kTile / kPass; ++i) {
       const bool valid = row0 + r + i * kPass < n;
-      cp_async16(d + i * kPass * D * 2, valid ? g + i * step : src,
-                 valid ? 16 : 0);
+      cp_async16(at(i), valid ? g + i * step : src, valid ? 16 : 0);
     }
+  }
+}
+
+// The arguments of the two backward kernels (dQ; dK and dV).
+struct BwdArgs {
+  const bf16* q;       // [B, Sq, H, D], strided, last dim contiguous
+  const bf16* k;       // [B, Skv, KVH, D], strided
+  const bf16* v;       // [B, Skv, KVH, D], strided
+  const bf16* dout;    // [B, Sq, H, D] contiguous
+  bf16* dq;            // [B, Sq, H, D] contiguous (the dQ kernels)
+  bf16* dk;            // [B, Skv, KVH, D] contiguous (the dK/dV kernels)
+  bf16* dv;            // [B, Skv, KVH, D] contiguous (the dK/dV kernels)
+  const float* lse;    // [B, H, Sq]
+  const float* delta;  // [B, H, Sq]
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  int B, H, KVH, Sq, Skv;
+};
+
+// The backward's arguments from a kernel file's launch parameters P
+// (fields named as BwdArgs's, out for dq).  False when a row of q, k, v
+// or dout would not start on 16 bytes.
+template <int D, class P>
+inline bool make_bwd_args(const P& p, BwdArgs& a) {
+  a = BwdArgs{static_cast<const bf16*>(p.q), static_cast<const bf16*>(p.k),
+              static_cast<const bf16*>(p.v),
+              static_cast<const bf16*>(p.dout), static_cast<bf16*>(p.out),
+              static_cast<bf16*>(p.dk), static_cast<bf16*>(p.dv), p.lse,
+              p.delta, p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh,
+              p.v_sb, p.v_ss, p.v_sh, p.B, p.H, p.KVH, p.Sq, p.Skv};
+  const long long o_ss = static_cast<long long>(p.H) * D;
+  return rows_aligned(p.q, p.q_sb, p.q_ss, p.q_sh) &&
+         rows_aligned(p.k, p.k_sb, p.k_ss, p.k_sh) &&
+         rows_aligned(p.v, p.v_sb, p.v_ss, p.v_sh) &&
+         rows_aligned(p.dout, o_ss * p.Sq, o_ss, D);
+}
+
+// Multiply the 16-byte chunks of a [64, D] tile that this thread copied
+// with load_tile by s, rounding to bf16 (the splash kernels'
+// q_s = bf16(q * scale)).  Call it once this thread's copies have landed
+// and before the barrier that publishes the tile.
+template <int D>
+__device__ __forceinline__ void scale_own_chunks(bf16* tile, float s) {
+  constexpr int kChunks = D / 8, kPass = kThreads / kChunks;
+  const int r = threadIdx.x / kChunks, ch = threadIdx.x % kChunks;
+#pragma unroll
+  for (int i = 0; i < kTile / kPass; ++i) {
+    uint4* p = reinterpret_cast<uint4*>(tile + swz<D>(r + i * kPass, ch * 8));
+    uint4 x = *p;
+    uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(as_bf162(w[e]));
+      w[e] = as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
+    }
+    *p = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 

@@ -35,13 +35,30 @@
 // multiplies the fp32 scores by `scale` and dK by `scale` once before the
 // store.  It needs every row of q, k, v and dout on 16 bytes.
 //
-// K1 and K3 on fp32 inputs and K2 are the first, simple versions: products
+// K2 on bf16 inputs is flash_bwd_dq_tc_kernel: the tensor-core dQ of
+// attention_bwd_dq_tc.cuh (Q-stationary bf16 mma.sync tiles, a cp.async
+// ring of K/V tiles, S, dP and dS in registers).  The reference keeps dS
+// in fp32 for dS.K, so dS is split into two bf16 products (hi + lo).  Its
+// walk visits the kv tiles up to the causal diagonal, multiplies the fp32
+// scores by `scale` and dQ by `scale` once before the store, and masks the
+// diagonal tile, the ragged last kv tile and the ragged last q tile.  It
+// needs every row of q, k, v and dout on 16 bytes.
+//
+// The bf16 kernels take head_dim 64, 128 and 256.  At 256 K1 and K2
+// re-read Q (and dO) from shared memory at each k-step rather than hold
+// their fragments, and K3 runs two blocks per kv tile, each accumulating
+// half of the columns of dK and dV.
+//
+// K1, K2 and K3 on fp32 inputs are the first, simple versions: products
 // as fp32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16 tensor
-// cores).  What bounds them on this card: operations.  At the training
-// shapes (S = 1024, head_dim 64) each (query, key) pair costs
-// 4-8 * head_dim flops against a few bytes, far above the ~295 flops per
-// byte where the tensor cores, not the memory, become the limit.  Their
-// design keeps the bytes near their bound and leaves the rate for later:
+// cores), at head_dim 64 and 128, and K1 also at 256 (214 KB of shared
+// memory; K2's and K3's fp32 tiles at 256 would need 280 and 296 KB, over
+// the card's 227 KB per block, and are refused).  What bounds them on
+// this card: operations.  At the training shapes (S = 1024, head_dim 64)
+// each (query, key) pair costs 4-8 * head_dim flops against a few bytes,
+// far above the ~295 flops per byte where the tensor cores, not the
+// memory, become the limit.  Their design keeps the bytes near their
+// bound and leaves the rate for later:
 //   - the TPU's 1024-row blocks sat in megabytes of VMEM.  Here a thread
 //     block holds 64 x 64 tiles in shared memory (fp32, rows padded by one
 //     word so that no two threads of a half-warp share a bank), and a loop
@@ -57,7 +74,7 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - the ragged edge (S not a multiple of 64) is loaded as zeros and
 //     masked, and is never stored.
-// Left for later: tensor-core tiles for K2, TMA loads, wgmma.
+// Left for later: TMA loads, wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -72,6 +89,7 @@
 #include <type_traits>
 
 #include "attention_bwd_dkv_tc.cuh"
+#include "attention_bwd_dq_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace {
@@ -100,17 +118,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max and sum over the 16 lanes that hold one row of a score tile
 __device__ __forceinline__ float row_max(float v) {
@@ -299,9 +310,10 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::forward_block<D>(a, walk, b, h, q0);
 }
 
-// K2: grid (B * H, q tiles), the last q tile first.
-template <typename T, int D>
+// K2 on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -368,11 +380,45 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 }
 
+// K2's walk for attention_bwd_dq_tc.cuh: kv tiles 0 .. n - 1; the tiles
+// that cross the causal diagonal or the ragged kv end, and every tile of
+// the ragged last q tile, take the element mask.
+struct FlashDqWalk {
+  static constexpr bool kSplit = true;    // fp32 dS in the reference
+  static constexpr bool kScaleQ = false;
+  int n, Sq, Skv, causal;
+  float scale;
+  __device__ int count() const { return n; }
+  __device__ int kv_row(int j) const { return j * kTile; }
+  __device__ bool masked(int j, int q0) const {
+    const int end = (j + 1) * kTile;
+    return end > Skv || (causal && end - 1 > q0) || q0 + kTile > Sq;
+  }
+  __device__ bool keep(int row, int col) const {
+    return row < Sq && col < Skv && (!causal || col <= row);
+  }
+  __device__ float logit_scale() const { return scale; }
+  __device__ float dq_value(float x) const { return x * scale; }
+};
+
+// K2 on bf16 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    flash_bwd_dq_tc_kernel(attn_tc::BwdArgs a, int causal, float scale) {
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int n = (a.Skv + kTile - 1) / kTile;
+  const FlashDqWalk walk{causal ? min(n, q0 / kTile + 1) : n, a.Sq, a.Skv,
+                         causal, scale};
+  attn_tc::dq_block<D>(a, walk, b, h, q0);
+}
+
 // K3 on fp32 inputs: grid (B * KVH, k tiles), the first k tile (the
 // longest causal loop) first.  Tiles are transposed against K2: a
 // thread's patch rows are keys and its columns queries.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -479,8 +525,8 @@ struct FlashDkvWalk {
   __device__ float dk_scale() const { return scale; }
 };
 
-// K3 on bf16 inputs: grid (B * KVH, kv tiles), the first kv tile (the
-// longest causal walk) first.
+// K3 on bf16 inputs: grid (B * KVH, kv tiles, column blocks), the first
+// kv tile (the longest causal walk) first.
 template <int D>
 __global__ void __launch_bounds__(attn_tc::kThreads)
     flash_bwd_dkv_tc_kernel(attn_tc::BwdArgs a, int causal, float scale) {
@@ -488,11 +534,15 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   const int kt = blockIdx.y;
   const FlashDkvWalk walk{a.H / a.KVH, causal ? kt : 0,
                           (a.Sq + kTile - 1) / kTile, a.Sq, causal, scale};
-  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile);
+  // this block's first column of dK and dV: a constant 0 below head_dim
+  // 256 (a run-time 0 there made K5-dKV 12% slower on an H100)
+  const int dc0 = D > 128 ? blockIdx.z * attn_tc::kDkvCols<D> : 0;
+  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile, dc0);
 }
 
 size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
+  if (kind == kDq && dtype == 1) return attn_tc::dq_smem_bytes(d);
   if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
@@ -515,11 +565,22 @@ cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t run_dq_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::BwdArgs a;
+  if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(flash_bwd_dq_tc_kernel<D>,
+                         dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
+                         attn_tc::kThreads, attn_tc::dq_smem_bytes(D),
+                         stream, a, p.causal, p.scale);
+}
+
+template <int D>
 cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
   attn_tc::BwdArgs a;
   if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
   return attn_tc::launch(flash_bwd_dkv_tc_kernel<D>,
-                         dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+                         dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile,
+                              D / attn_tc::kDkvCols<D>),
                          attn_tc::kThreads, attn_tc::dkv_smem_bytes(D),
                          stream, a, p.causal, p.scale);
 }
@@ -527,27 +588,50 @@ cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
-  const size_t smem = smem_bytes(kind, dtype, D);
-  if (kind == kFwd) {
-    // fp32 keeps the CUDA-core forward; no bf16 call reaches it
-    if constexpr (dtype == 0)
+  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones,
+  // whose backward tiles do not fit a block at head_dim 256
+  if constexpr (dtype == 1) {
+    if (kind == kFwd) return run_fwd_tc<D>(p, stream);
+    if (kind == kDq) return run_dq_tc<D>(p, stream);
+    return run_dkv_tc<D>(p, stream);
+  } else {
+    const size_t smem = smem_bytes(kind, dtype, D);
+    if (kind == kFwd)
       return attn_tc::launch(flash_fwd_kernel<D>,
                              dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
                              kThreads, smem, stream, p);
-    else
-      return run_fwd_tc<D>(p, stream);
+    if constexpr (D > 128) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (kind == kDq)
+        return attn_tc::launch(flash_bwd_dq_kernel<D>,
+                               dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
+                               kThreads, smem, stream, p);
+      return attn_tc::launch(flash_bwd_dkv_kernel<D>,
+                             dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+                             kThreads, smem, stream, p);
+    }
   }
+}
+
+// What the CUDA runtime reports of a bf16 kernel at head_dim hd (see
+// rt_flash_fwd_usage): kind 0 K1, 1 K2, 2 K3.
+template <int D>
+int tc_usage(int kind, int* out) {
+  if (kind == kFwd)
+    return attn_tc::usage(flash_fwd_tc_kernel<D>, attn_tc::smem_bytes(D), out);
   if (kind == kDq)
-    return attn_tc::launch(flash_bwd_dq_kernel<T, D>,
-                           dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
-                           kThreads, smem, stream, p);
-  // fp32 keeps the CUDA-core dK/dV; no bf16 call reaches it
-  if constexpr (dtype == 0)
-    return attn_tc::launch(flash_bwd_dkv_kernel<T, D>,
-                           dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
-                           kThreads, smem, stream, p);
-  else
-    return run_dkv_tc<D>(p, stream);
+    return attn_tc::usage(flash_bwd_dq_tc_kernel<D>,
+                          attn_tc::dq_smem_bytes(D), out);
+  return attn_tc::usage(flash_bwd_dkv_tc_kernel<D>,
+                        attn_tc::dkv_smem_bytes(D), out);
+}
+
+int tc_usage(int kind, int hd, int* out) {
+  if (hd == 64) return tc_usage<64>(kind, out);
+  if (hd == 128) return tc_usage<128>(kind, out);
+  if (hd == 256) return tc_usage<256>(kind, out);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -562,37 +646,25 @@ size_t rt_flash_smem_bytes(int kind, int dtype, int hd) {
 }
 
 // Registers per thread, local memory bytes per thread and resident blocks
-// per SM of K1's bf16 kernel at head_dim hd, as the CUDA runtime reports
-// them, into out[3]; the cudaError_t of the query.
-int rt_flash_fwd_usage(int hd, int* out) {
-  if (hd == 64)
-    return attn_tc::usage(flash_fwd_tc_kernel<64>,
-                          attn_tc::smem_bytes(64), out);
-  if (hd == 128)
-    return attn_tc::usage(flash_fwd_tc_kernel<128>,
-                          attn_tc::smem_bytes(128), out);
-  return cudaErrorInvalidValue;
-}
+// per SM of K1's bf16 kernel at head_dim hd (64, 128 or 256), as the CUDA
+// runtime reports them, into out[3]; the cudaError_t of the query.
+int rt_flash_fwd_usage(int hd, int* out) { return tc_usage(kFwd, hd, out); }
+
+// The same of K2's bf16 kernel.
+int rt_flash_dq_usage(int hd, int* out) { return tc_usage(kDq, hd, out); }
 
 // The same of K3's bf16 kernel.
-int rt_flash_dkv_usage(int hd, int* out) {
-  if (hd == 64)
-    return attn_tc::usage(flash_bwd_dkv_tc_kernel<64>,
-                          attn_tc::dkv_smem_bytes(64), out);
-  if (hd == 128)
-    return attn_tc::usage(flash_bwd_dkv_tc_kernel<128>,
-                          attn_tc::dkv_smem_bytes(128), out);
-  return cudaErrorInvalidValue;
-}
+int rt_flash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 
 // One launch of K1 (kind 0), K2 (kind 1) or K3 (kind 2).  dtype 0 is fp32,
 // 1 is bf16, for q, k, v, dout and the outputs alike.  strides holds the
 // (batch, seq, head) strides in elements of q, k and v, in that order; their
 // head_dim stride is 1.  dout, out, dk and dv are contiguous; lse and delta
-// are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  K1 on
-// bf16 needs the q, k and v pointers and strides on 16 bytes, K3 on bf16
-// those of q, k, v and dout (cudaErrorMisalignedAddress otherwise).
-// Returns the cudaError_t of the launch.
+// are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  head_dim
+// is 64, 128 or 256 (fp32: K1 only at 256).  K1 on bf16 needs the q, k and
+// v pointers and strides on 16 bytes, K2 and K3 on bf16 those of q, k, v
+// and dout (cudaErrorMisalignedAddress otherwise).  Returns the
+// cudaError_t of the launch.
 int rt_flash_attention(int kind, int dtype, const void* q, const void* k,
                        const void* v, const void* dout, void* out, void* dk,
                        void* dv, void* lse, const void* delta,
@@ -631,8 +703,10 @@ int rt_flash_attention(int kind, int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return run<float, 64>(kind, p, st);
   if (dtype == 0 && hd == 128) return run<float, 128>(kind, p, st);
+  if (dtype == 0 && hd == 256) return run<float, 256>(kind, p, st);
   if (dtype == 1 && hd == 64) return run<__nv_bfloat16, 64>(kind, p, st);
   if (dtype == 1 && hd == 128) return run<__nv_bfloat16, 128>(kind, p, st);
+  if (dtype == 1 && hd == 256) return run<__nv_bfloat16, 256>(kind, p, st);
   return cudaErrorInvalidValue;
 }
 

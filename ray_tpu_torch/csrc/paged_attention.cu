@@ -345,10 +345,10 @@ size_t rt_paged_attention_smem_bytes(int g, int hd, int ps) {
 
 // q [rows, heads, hd] bf16, kv [num_pages, kvh, ps, 2*hd] bf16,
 // tables [rows, max_pages] int32, lengths [rows] int32, out [rows, heads, hd]
-// bf16; all contiguous on one device.  With n_split > 1, part_acc holds
-// rows*kvh*n_split*g*hd floats and part_ml rows*kvh*n_split*g*2 floats of
-// scratch; with n_split == 1 both may be null.  Returns the cudaError_t of
-// the launches.
+// bf16, with hd 64, 128 or 256; all contiguous on one device.  With
+// n_split > 1, part_acc holds rows*kvh*n_split*g*hd floats and part_ml
+// rows*kvh*n_split*g*2 floats of scratch; with n_split == 1 both may be
+// null.  Returns the cudaError_t of the launches.
 int rt_paged_attention_bf16(const void* q, const void* kv, const void* tables,
                             const void* lengths, void* out, void* part_acc,
                             void* part_ml, int rows, int heads, int kvh,
@@ -370,6 +370,10 @@ int rt_paged_attention_bf16(const void* q, const void* kv, const void* tables,
                       st);
   if (hd == 128)
     return launch<128>(q, kv, t, len, out, pa, pm, rows, heads, kvh, ps,
+                       num_pages, max_pages, pages_per_split, n_split, scale,
+                       st);
+  if (hd == 256)
+    return launch<256>(q, kv, t, len, out, pa, pm, rows, heads, kvh, ps,
                        num_pages, max_pages, pages_per_split, n_split, scale,
                        st);
   return cudaErrorInvalidValue;

@@ -50,13 +50,26 @@
 // each product is one bf16 mma.  It needs every row of q, k, v and dout on
 // 16 bytes.
 //
+// K5-dQ on bf16 inputs is splash_bwd_dq_tc_kernel: the tensor-core dQ of
+// attention_bwd_dq_tc.cuh (Q-stationary bf16 mma.sync tiles, a cp.async
+// ring of K/V tiles, S, dP and dS in registers).  Its walk is the q tile's
+// table entries; it scales the Q tile to q_s = bf16(q * scale) in shared
+// memory once it lands, rounds dS to bf16 for dS.K as the library does
+// (one bf16 mma), and writes dq = bf16(bf16(dS.K) * scale).  It needs
+// every row of q, k, v and dout on 16 bytes.
+//
+// The bf16 kernels take head_dim 64, 128 and 256, as K1-K3 do
+// (csrc/flash_attention.cu).
+//
 // What bounds them on this card: operations.  At the training shapes
 // (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
 // against a few bytes, far above the ~295 flops per byte where the tensor
-// cores, not the memory, become the limit.  K5-fwd and K5-dKV on fp32,
-// and K5-dQ, are the first, simple versions: the products run as fp32
-// FMAs on the CUDA cores from shared memory, as K2 and K3 on fp32 do
-// (csrc/flash_attention.cu).  Their design:
+// cores, not the memory, become the limit.  K5-fwd, K5-dQ and K5-dKV on
+// fp32 are the first, simple versions: the products run as fp32 FMAs on
+// the CUDA cores from shared memory, as K1-K3 on fp32 do
+// (csrc/flash_attention.cu), at head_dim 64 and 128, and K5-fwd also at
+// 256 (the backward's fp32 tiles do not fit a block there).  Their
+// design:
 //   - a thread block holds 64 x 64 fp32 tiles in shared memory (rows padded
 //     by one word against bank conflicts), and a loop over the block's
 //     table entries replaces the TPU's sequential grid dimension, which
@@ -70,7 +83,7 @@
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - q_len and kv_len are multiples of 64 (the library's 128-row blocks),
 //     so there is no ragged edge.
-// Left for later: tensor-core tiles for K5-dQ, TMA loads, wgmma.
+// Left for later: TMA loads, wgmma.
 //
 // Inputs are fp32 or bf16 (dtype 0 or 1); sums are fp32; outputs take the
 // input dtype, and LSE is fp32 [B, heads, Sq].
@@ -86,6 +99,7 @@
 #include <type_traits>
 
 #include "attention_bwd_dkv_tc.cuh"
+#include "attention_bwd_dq_tc.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace {
@@ -119,17 +133,10 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 // x rounded to T and back: what a value of dtype T holds
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -327,9 +334,10 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::forward_block<D>(a, walk, b, h, qt * kTile);
 }
 
-// K5-dQ: grid (B * H, q tiles), the last q tile first.
-template <typename T, int D>
+// K5-dQ on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
 __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -400,11 +408,45 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
   }
 }
 
+// K5-dQ's walk for attention_bwd_dq_tc.cuh: the q tile's table entries;
+// partial tiles take the causal rule.
+struct SplashDqWalk {
+  static constexpr bool kSplit = false;   // the library rounds dS
+  static constexpr bool kScaleQ = true;   // q_s = bf16(q * scale)
+  const int* ent;       // the q tile's entries, (kv tile << 1) | partial
+  int n;
+  float scale;          // sm_scale rounded to bf16
+  __device__ int count() const { return n; }
+  __device__ int kv_row(int j) const { return (__ldg(ent + j) >> 1) * kTile; }
+  __device__ bool masked(int j, int) const { return __ldg(ent + j) & 1; }
+  __device__ bool keep(int row, int col) const { return col <= row; }
+  __device__ float logit_scale() const { return 1.f; }
+  __device__ float q_scale() const { return scale; }
+  // dq = bf16(dS.K) * scale, rounded again on the store
+  __device__ float dq_value(float x) const {
+    return __bfloat162float(__float2bfloat16(x)) * scale;
+  }
+};
+
+// K5-dQ on bf16 inputs: grid (B * H, q tiles), the last q tile first.
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+    splash_bwd_dq_tc_kernel(attn_tc::BwdArgs a, const int* head_map,
+                            const int* ptr, const int* ent, float scale) {
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int nq = gridDim.y;
+  const int qt = nq - 1 - blockIdx.y;
+  const int* list = ptr + head_map[h] * (nq + 1) + qt;
+  const SplashDqWalk walk{ent + list[0], list[1] - list[0], scale};
+  attn_tc::dq_block<D>(a, walk, b, h, qt * kTile);
+}
+
 // K5-dKV on fp32 inputs: grid (B * KVH, kv tiles), the first kv tile (the
 // longest causal list) first.  Tiles are transposed against K5-dQ: a
 // thread's patch rows are keys and its columns queries.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
+  using T = float;
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -535,8 +577,8 @@ struct SplashDkvWalk {
   __device__ float dk_scale() const { return 1.f; }
 };
 
-// K5-dKV on bf16 inputs: grid (B * KVH, kv tiles), the first kv tile (the
-// longest causal list) first.
+// K5-dKV on bf16 inputs: grid (B * KVH, kv tiles, column blocks), the
+// first kv tile (the longest causal list) first.
 template <int D>
 __global__ void __launch_bounds__(attn_tc::kThreads)
     splash_bwd_dkv_tc_kernel(attn_tc::BwdArgs a, const int* head_map,
@@ -546,11 +588,15 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   const int kt = blockIdx.y;
   const SplashDkvWalk walk{head_map, ptr, ent, kvh * g, g,
                            static_cast<int>(gridDim.y), kt, scale};
-  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile);
+  // this block's first column of dK and dV: a constant 0 below head_dim
+  // 256 (a run-time 0 there made K5-dKV 12% slower on an H100)
+  const int dc0 = D > 128 ? blockIdx.z * attn_tc::kDkvCols<D> : 0;
+  attn_tc::dkv_block<D>(a, walk, b, kvh, kt * kTile, dc0);
 }
 
 size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
+  if (kind == kDq && dtype == 1) return attn_tc::dq_smem_bytes(d);
   if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
@@ -573,39 +619,74 @@ cudaError_t run_fwd_tc(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t run_dq_tc(const Params& p, cudaStream_t stream) {
+  attn_tc::BwdArgs a;
+  if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
+  return attn_tc::launch(splash_bwd_dq_tc_kernel<D>,
+                         dim3(p.B * p.H, p.Sq / kTile), attn_tc::kThreads,
+                         attn_tc::dq_smem_bytes(D), stream, a, p.head_map,
+                         p.ptr, p.ent, p.scale);
+}
+
+template <int D>
 cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
   attn_tc::BwdArgs a;
   if (!attn_tc::make_bwd_args<D>(p, a)) return cudaErrorMisalignedAddress;
   return attn_tc::launch(splash_bwd_dkv_tc_kernel<D>,
-                         dim3(p.B * p.KVH, p.Skv / kTile), attn_tc::kThreads,
-                         attn_tc::dkv_smem_bytes(D), stream, a, p.head_map,
-                         p.ptr, p.ent, p.scale);
+                         dim3(p.B * p.KVH, p.Skv / kTile,
+                              D / attn_tc::kDkvCols<D>),
+                         attn_tc::kThreads, attn_tc::dkv_smem_bytes(D),
+                         stream, a, p.head_map, p.ptr, p.ent, p.scale);
 }
 
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
-  const size_t smem = smem_bytes(kind, dtype, D);
-  if (kind == kFwd) {
-    // fp32 keeps the CUDA-core forward; no bf16 call reaches it
-    if constexpr (dtype == 0)
+  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones,
+  // whose backward tiles do not fit a block at head_dim 256
+  if constexpr (dtype == 1) {
+    if (kind == kFwd) return run_fwd_tc<D>(p, stream);
+    if (kind == kDq) return run_dq_tc<D>(p, stream);
+    return run_dkv_tc<D>(p, stream);
+  } else {
+    const size_t smem = smem_bytes(kind, dtype, D);
+    if (kind == kFwd)
       return attn_tc::launch(splash_fwd_kernel<D>,
                              dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
                              stream, p);
-    else
-      return run_fwd_tc<D>(p, stream);
+    if constexpr (D > 128) {
+      return cudaErrorInvalidValue;
+    } else {
+      if (kind == kDq)
+        return attn_tc::launch(splash_bwd_dq_kernel<D>,
+                               dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
+                               stream, p);
+      return attn_tc::launch(splash_bwd_dkv_kernel<D>,
+                             dim3(p.B * p.KVH, p.Skv / kTile), kThreads,
+                             smem, stream, p);
+    }
   }
+}
+
+// What the CUDA runtime reports of a bf16 kernel at head_dim hd (see
+// rt_splash_fwd_usage): kind 0 K5-fwd, 1 K5-dQ, 2 K5-dKV.
+template <int D>
+int tc_usage(int kind, int* out) {
+  if (kind == kFwd)
+    return attn_tc::usage(splash_fwd_tc_kernel<D>, attn_tc::smem_bytes(D),
+                          out);
   if (kind == kDq)
-    return attn_tc::launch(splash_bwd_dq_kernel<T, D>,
-                           dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
-                           stream, p);
-  // fp32 keeps the CUDA-core dK/dV; no bf16 call reaches it
-  if constexpr (dtype == 0)
-    return attn_tc::launch(splash_bwd_dkv_kernel<T, D>,
-                           dim3(p.B * p.KVH, p.Skv / kTile), kThreads, smem,
-                           stream, p);
-  else
-    return run_dkv_tc<D>(p, stream);
+    return attn_tc::usage(splash_bwd_dq_tc_kernel<D>,
+                          attn_tc::dq_smem_bytes(D), out);
+  return attn_tc::usage(splash_bwd_dkv_tc_kernel<D>,
+                        attn_tc::dkv_smem_bytes(D), out);
+}
+
+int tc_usage(int kind, int hd, int* out) {
+  if (hd == 64) return tc_usage<64>(kind, out);
+  if (hd == 128) return tc_usage<128>(kind, out);
+  if (hd == 256) return tc_usage<256>(kind, out);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -620,28 +701,15 @@ size_t rt_splash_smem_bytes(int kind, int dtype, int hd) {
 }
 
 // Registers per thread, local memory bytes per thread and resident blocks
-// per SM of K5-fwd's bf16 kernel at head_dim hd, as the CUDA runtime reports
-// them, into out[3]; the cudaError_t of the query.
-int rt_splash_fwd_usage(int hd, int* out) {
-  if (hd == 64)
-    return attn_tc::usage(splash_fwd_tc_kernel<64>,
-                          attn_tc::smem_bytes(64), out);
-  if (hd == 128)
-    return attn_tc::usage(splash_fwd_tc_kernel<128>,
-                          attn_tc::smem_bytes(128), out);
-  return cudaErrorInvalidValue;
-}
+// per SM of K5-fwd's bf16 kernel at head_dim hd (64, 128 or 256), as the
+// CUDA runtime reports them, into out[3]; the cudaError_t of the query.
+int rt_splash_fwd_usage(int hd, int* out) { return tc_usage(kFwd, hd, out); }
+
+// The same of K5-dQ's bf16 kernel.
+int rt_splash_dq_usage(int hd, int* out) { return tc_usage(kDq, hd, out); }
 
 // The same of K5-dKV's bf16 kernel.
-int rt_splash_dkv_usage(int hd, int* out) {
-  if (hd == 64)
-    return attn_tc::usage(splash_bwd_dkv_tc_kernel<64>,
-                          attn_tc::dkv_smem_bytes(64), out);
-  if (hd == 128)
-    return attn_tc::usage(splash_bwd_dkv_tc_kernel<128>,
-                          attn_tc::dkv_smem_bytes(128), out);
-  return cudaErrorInvalidValue;
-}
+int rt_splash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 
 // One launch of K5-fwd (kind 0), K5-dQ (kind 1) or K5-dKV (kind 2).  dtype 0
 // is fp32, 1 is bf16, for q, k, v, dout and the outputs alike.  strides
@@ -651,8 +719,9 @@ int rt_splash_dkv_usage(int hd, int* out) {
 // table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
 // the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
 // rounded to the input dtype.  Pointers a kind does not use may be null.
-// K5-fwd on bf16 needs the q, k and v pointers and strides on 16 bytes,
-// K5-dKV on bf16 those of q, k, v and dout (cudaErrorMisalignedAddress
+// head_dim is 64, 128 or 256 (fp32: K5-fwd only at 256).  K5-fwd on bf16
+// needs the q, k and v pointers and strides on 16 bytes, K5-dQ and K5-dKV
+// on bf16 those of q, k, v and dout (cudaErrorMisalignedAddress
 // otherwise).  Returns the cudaError_t of the launch.
 int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
                         const void* v, const void* dout, void* out, void* dk,
@@ -695,8 +764,10 @@ int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return run<float, 64>(kind, p, st);
   if (dtype == 0 && hd == 128) return run<float, 128>(kind, p, st);
+  if (dtype == 0 && hd == 256) return run<float, 256>(kind, p, st);
   if (dtype == 1 && hd == 64) return run<__nv_bfloat16, 64>(kind, p, st);
   if (dtype == 1 && hd == 128) return run<__nv_bfloat16, 128>(kind, p, st);
+  if (dtype == 1 && hd == 256) return run<__nv_bfloat16, 256>(kind, p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,12 @@ The flax tree stacks scanned layers on a leading axis:
   lm_head/kernel                       [d, V]   (absent when tied)
 
 Unscanned models hold ``block_{i}`` subtrees without the layer axis.
+With partial remat (``remat`` on, ``0 < remat_layers < n_layers``) the
+JAX model stacks the first ``remat_layers`` layers as above and the rest
+under ``blocks_tail`` (unscanned: ``blocks_tai_{j}``, flax's
+``name[:-1]``), layer ``remat_layers + j`` at index ``j``.  A decode-mode
+init never splits its stack, so the tail is read only where the tree
+holds one.
 A flax kernel is [in, out]; ``nn.Linear`` stores [out, in].
 """
 
@@ -31,7 +37,15 @@ import torch
 from ray_tpu_torch.models.configs import TransformerConfig
 
 
-def _layer_tree(tree: Mapping, i: int) -> Mapping:
+def _layer_tree(tree: Mapping, i: int, cfg: TransformerConfig) -> Mapping:
+    """Layer i's subtree: from the remat tail where the tree holds one
+    and i lies past the first ``remat_layers`` layers."""
+    n = cfg.remat_layers
+    if cfg.remat and n is not None and 0 < n <= i < cfg.n_layers and (
+            "blocks_tail" in tree or "blocks_tai_0" in tree):
+        if "blocks_tail" in tree:
+            return _index_tree(tree["blocks_tail"], i - n)
+        return tree[f"blocks_tai_{i - n}"]
     if "blocks" in tree:
         return _index_tree(tree["blocks"], i)
     return tree[f"block_{i}"]
@@ -57,7 +71,7 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = t(tree["lm_head"]["kernel"]).T
     for i in range(cfg.n_layers):
-        lt = _layer_tree(tree, i)
+        lt = _layer_tree(tree, i, cfg)
         a, m, p = lt["attn"], lt["mlp"], f"blocks.{i}."
         for name in ("wq", "wk", "wv"):
             sd[p + f"attn.{name}.weight"] = t(

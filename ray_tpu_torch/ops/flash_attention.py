@@ -14,12 +14,18 @@ Pallas kernels of the JAX package:
     ``csrc/attention_fwd_tc.cuh``, which copies rows 16 bytes at a time:
     q, k and v must then start every row on 16 bytes
     (``check_rows_aligned``); fp32 inputs take the CUDA-core kernel;
-  - K2 ``flash_bwd_dq_cuda``: dQ (``_bwd_dq_kernel``);
+  - K2 ``flash_bwd_dq_cuda``: dQ (``_bwd_dq_kernel``).  On bf16 inputs
+    it is the tensor-core dQ of ``csrc/attention_bwd_dq_tc.cuh``, which
+    copies rows 16 bytes at a time: q, k, v and dout must then start
+    every row on 16 bytes; fp32 inputs take the CUDA-core kernel;
   - K3 ``flash_bwd_dkv_cuda``: dK and dV (``_bwd_dkv_kernel``).  On bf16
     inputs it is the tensor-core dK/dV of
-    ``csrc/attention_bwd_dkv_tc.cuh``, which copies rows 16 bytes at a
-    time: q, k, v and dout must then start every row on 16 bytes; fp32
+    ``csrc/attention_bwd_dkv_tc.cuh``, with the same row rule; fp32
     inputs take the CUDA-core kernel.
+
+The kernels take head_dim 64, 128 and 256, except fp32 K2 and K3 at
+256: their fp32 tiles would need more shared memory than a block may
+have, and the launchers refuse them with a ValueError that says so.
 
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward launches K1 and saves (q, k, v, o, lse); the backward computes
@@ -47,7 +53,7 @@ from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
 # per-block shared memory an H100 block may opt into (227 KB)
 _MAX_SMEM = 232448
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _FWD, _DQ, _DKV = 0, 1, 2
@@ -139,7 +145,8 @@ def _lib():
         lib.rt_flash_attention.restype = i
         lib.rt_flash_smem_bytes.argtypes = [i, i, i]
         lib.rt_flash_smem_bytes.restype = ctypes.c_size_t
-        for fn in (lib.rt_flash_fwd_usage, lib.rt_flash_dkv_usage):
+        for fn in (lib.rt_flash_fwd_usage, lib.rt_flash_dq_usage,
+                   lib.rt_flash_dkv_usage):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
         lib._rt_typed = True
@@ -197,9 +204,8 @@ def _check(name: str, q, k, v, causal: bool, do=None, lse=None,
 def check_rows_aligned(name: str, **tensors: torch.Tensor) -> None:
     """Raise ValueError unless every row of each tensor starts on 16
     bytes: its data pointer and its (batch, seq, head) strides in bytes
-    are multiples of 16.  The bf16 forwards and dK/dV kernels copy rows 16
-    bytes at a time; a tensor that breaks the rule is refused, not
-    copied."""
+    are multiples of 16.  The bf16 tensor-core kernels copy rows 16 bytes
+    at a time; a tensor that breaks the rule is refused, not copied."""
     for tname, t in tensors.items():
         esize = t.element_size()
         if t.data_ptr() % 16 or any(st * esize % 16 for st in t.stride()[:3]):
@@ -254,9 +260,12 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool,
                       sm_scale: float) -> torch.Tensor:
     """K2: dq [B, Sq, H, D] in q's dtype from contiguous ``do`` and fp32
-    ``lse``/``delta`` [B, H, Sq].  Every launch adds one to
-    ``flash_bwd_dq_cuda.launches``."""
+    ``lse``/``delta`` [B, H, Sq].  bf16 rows of q, k, v and do must start
+    on 16 bytes.  Every launch adds one to ``flash_bwd_dq_cuda.launches``.
+    """
     _check("flash_bwd_dq_cuda", q, k, v, causal, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("flash_bwd_dq_cuda", q=q, k=k, v=v, dout=do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(_DQ, q, k, v, causal, sm_scale, dout=do, out=dq, lse=lse,
             delta=delta)

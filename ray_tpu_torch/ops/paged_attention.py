@@ -38,7 +38,7 @@ from ray_tpu_torch.ops.attention import dense_attention
 
 # per-block shared memory an H100 block may opt into (227 KB)
 _MAX_SMEM = 232448
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _MAX_PAGE_SIZE = 128
 
 
@@ -97,8 +97,8 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                          *, sm_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (shapes as in
-    ``paged_attention_ref``).  Takes bf16 q and pool, head_dim 64 or 128,
-    page_size up to 128, any GQA group; int32 tables and lengths; all
+    ``paged_attention_ref``).  Takes bf16 q and pool, head_dim 64, 128 or
+    256, page_size up to 128, any GQA group; int32 tables and lengths; all
     contiguous on one CUDA device.  Raises on anything else, and when the
     launch fails.  Every launch adds one to ``paged_attention_cuda.launches``.
     """

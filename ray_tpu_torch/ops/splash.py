@@ -12,11 +12,17 @@ table in three kernels of ``ray_tpu_torch/csrc/splash_attention.cu``:
     (the library's ``flash_attention_kernel``); on bf16 inputs the
     tensor-core forward it shares with K1 (``csrc/attention_fwd_tc.cuh``),
     which needs every row of q, k and v on 16 bytes;
-  - K5-dQ ``splash_bwd_dq_cuda`` (``_flash_attention_dq_kernel``);
+  - K5-dQ ``splash_bwd_dq_cuda`` (``_flash_attention_dq_kernel``); on
+    bf16 inputs the tensor-core dQ it shares with K2
+    (``csrc/attention_bwd_dq_tc.cuh``), which needs every row of q, k, v
+    and dout on 16 bytes;
   - K5-dKV ``splash_bwd_dkv_cuda`` (``_flash_attention_dkv_kernel``); on
     bf16 inputs the tensor-core dK/dV it shares with K3
-    (``csrc/attention_bwd_dkv_tc.cuh``), which needs every row of q, k, v
-    and dout on 16 bytes.
+    (``csrc/attention_bwd_dkv_tc.cuh``), with the same row rule.
+
+They take the head_dims of the flash kernels: 64, 128 and 256, except
+fp32 K5-dQ and K5-dKV at 256 (refused: their fp32 tiles do not fit a
+block's shared memory).
 
 Semantics kept from the JAX side:
 
@@ -317,7 +323,8 @@ def _lib():
         lib.rt_splash_attention.restype = i
         lib.rt_splash_smem_bytes.argtypes = [i, i, i]
         lib.rt_splash_smem_bytes.restype = ctypes.c_size_t
-        for fn in (lib.rt_splash_fwd_usage, lib.rt_splash_dkv_usage):
+        for fn in (lib.rt_splash_fwd_usage, lib.rt_splash_dq_usage,
+                   lib.rt_splash_dkv_usage):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
         lib._rt_typed = True
@@ -389,9 +396,12 @@ def splash_fwd_cuda(q, k, v, mask: MultiHeadMask, *, sm_scale: float
 def splash_bwd_dq_cuda(q, k, v, do, lse, delta, mask: MultiHeadMask, *,
                        sm_scale: float) -> torch.Tensor:
     """K5-dQ: dq [B, Sq, H, D] in q's dtype from contiguous ``do`` and
-    fp32 ``lse``/``delta`` [B, H, Sq].  Every launch adds one to
+    fp32 ``lse``/``delta`` [B, H, Sq].  bf16 rows of q, k, v and do must
+    start on 16 bytes.  Every launch adds one to
     ``splash_bwd_dq_cuda.launches``."""
     _check("splash_bwd_dq_cuda", q, k, v, mask, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned("splash_bwd_dq_cuda", q=q, k=k, v=v, dout=do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(_DQ, q, k, v, mask, sm_scale, dout=do, out=dq, lse=lse,
             delta=delta)

@@ -204,6 +204,12 @@ class LLMEngine:
         self._stale_slots: set = set()   # evicted, redirect pending
 
     def _load_model(self, params_or_model) -> GPT:
+        """The engine's GPT in ``cfg.dtype`` on the engine's device.  A
+        caller's GPT that already is both is shared as it is; any other
+        is left untouched, and a new GPT loads a cast copy of its state
+        dict, as the JAX engine casts into a new tree.  The caller's
+        parameters, ``training`` flag and ``requires_grad`` never
+        change."""
         cfg = self.cfg
         if isinstance(params_or_model, GPT):
             model = params_or_model
@@ -214,13 +220,13 @@ class LLMEngine:
                 raise ValueError(
                     f"model rope tables cover {model.cfg.max_seq_len} "
                     f"positions < engine max_seq_len {cfg.max_seq_len}")
-            model.to(self.device)
-        else:
-            model = GPT(cfg, device=self.device, dtype=cfg.dtype)
-            model.load_state_dict(params_or_model)
-        with torch.no_grad():
-            for p in model.parameters():
-                p.data = p.data.to(cfg.dtype)
+            tensors = [*model.parameters(), *model.buffers()]
+            if all(t.device == self.device for t in tensors) and all(
+                    p.dtype == cfg.dtype for p in model.parameters()):
+                return model
+            params_or_model = model.state_dict()
+        model = GPT(cfg, device=self.device, dtype=cfg.dtype)
+        model.load_state_dict(params_or_model)
         model.eval().requires_grad_(False)
         return model
 

@@ -138,3 +138,35 @@ def test_port_engine_eos_oversized_and_unported(weights, jax_results):
         LLMEngine(tcfg, {}, paged=False, device="cpu")
     with pytest.raises(RuntimeError, match="closed"):
         eng.submit([1])
+
+
+def test_engine_leaves_the_callers_model_as_it_was(weights):
+    """tiny in bf16 over fp32 masters: the engine serves a cast copy and
+    leaves the caller's parameters fp32, trainable and in train mode, as
+    the JAX engine casts into a new tree.  Its greedy tokens are those of
+    an engine built from the state dict."""
+    import torch
+    from ray_tpu_torch.models.gpt import GPT
+    _, tree, _ = weights
+    cfg = get_config("tiny", n_kv_heads=2, dtype=torch.bfloat16)
+    model = GPT(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(tree, cfg))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    kw = dict(ENGINE, device="cpu")
+    eng = LLMEngine(cfg, model, **kw)
+    try:
+        assert eng.model is not model
+        assert all(p.dtype == torch.bfloat16 for p in eng.model.parameters())
+        got = _run(eng, PROMPTS[:2])
+    finally:
+        eng.close()
+    assert model.training
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.requires_grad, name
+        assert torch.equal(p, before[name]), name
+    ref = LLMEngine(cfg, before, **kw)
+    try:
+        want = _run(ref, PROMPTS[:2])
+    finally:
+        ref.close()
+    assert [r.tokens for r in got] == [r.tokens for r in want]

@@ -13,10 +13,10 @@ more terms.
 The bf16 tensor-core forward (K1 on the card) is emulated here in plain
 torch and held against JAX's kernel at the tolerances the card's checks
 hold the kernel to against its plain version: o atol 2e-2 (both round o
-to bf16, 2^-8 relative), LSE atol 1e-4 (both sum in fp32).  So is the
-bf16 tensor-core dK/dV (K3 on the card), against JAX's _bwd: dK and dV
-atol 2e-2 (both round them to bf16), and at most SPLIT_DIFFERING of
-their elements may differ at all.
+to bf16, 2^-8 relative), LSE atol 1e-4 (both sum in fp32).  So are the
+bf16 tensor-core dK/dV (K3 on the card) and dQ (K2), against JAX's
+_bwd: dK, dV and dQ atol 2e-2 (both round them to bf16), and at most
+SPLIT_DIFFERING of their elements may differ at all.
 """
 
 import numpy as np
@@ -30,7 +30,9 @@ from ray_tpu.ops.attention import attention as jax_attention
 from ray_tpu.ops.flash_attention import _bwd as jax_flash_bwd
 from ray_tpu.ops.flash_attention import _fwd as jax_flash_fwd
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
+from ray_tpu.ops.paged_attention import paged_attention_xla
 from ray_tpu_torch.ops import flash_attention as flash_mod
+from ray_tpu_torch.ops import paged_attention as paged_mod
 from ray_tpu_torch.ops.attention import NEG_INF, attention, dense_attention
 from ray_tpu_torch.ops.flash_attention import (check_rows_aligned,
                                                flash_attention,
@@ -230,9 +232,9 @@ def _low_logits(q, k):
     (2, 128, 2, 2, 64, True, False), (1, 128, 2, 2, 128, True, False),
     (1, 128, 4, 2, 64, True, False), (1, 100, 2, 2, 64, True, False),
     (1, 100, 2, 1, 64, False, False), (1, 128, 2, 2, 64, True, True),
-    (1, 128, 4, 2, 128, False, True)],
+    (1, 128, 4, 2, 128, False, True), (1, 128, 2, 2, 256, True, False)],
     ids=["hd64", "hd128", "gqa", "ragged", "ragged_full", "low_logits",
-         "low_logits_full_gqa_hd128"])
+         "low_logits_full_gqa_hd128", "hd256"])
 def test_tc_forward_arithmetic_matches_jax_flash(b, s, h, kvh, d, causal,
                                                  low):
     """The emulation against JAX's _fwd kernel in interpret mode on bf16
@@ -357,11 +359,16 @@ def _jax3(x, h):
                        jnp.bfloat16)
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d,causal,skv", [
-    (2, 128, 2, 2, 64, True, None), (1, 128, 2, 2, 128, True, None),
-    (1, 128, 4, 2, 64, True, None), (1, 100, 2, 2, 64, True, None),
-    (1, 100, 2, 1, 64, False, 160)],
-    ids=["hd64", "hd128", "gqa", "ragged", "full_gqa_sq_ne_skv"])
+BWD_CASES = dict(
+    argnames="b,s,h,kvh,d,causal,skv",
+    argvalues=[(2, 128, 2, 2, 64, True, None), (1, 128, 2, 2, 128, True, None),
+               (1, 128, 4, 2, 64, True, None), (1, 100, 2, 2, 64, True, None),
+               (1, 100, 2, 1, 64, False, 160),
+               (1, 128, 2, 2, 256, True, None)],
+    ids=["hd64", "hd128", "gqa", "ragged", "full_gqa_sq_ne_skv", "hd256"])
+
+
+@pytest.mark.parametrize(**BWD_CASES)
 def test_tc_dkv_arithmetic_matches_jax_flash(b, s, h, kvh, d, causal, skv):
     """The emulation against JAX's _bwd (its _bwd_dkv_kernel) in interpret
     mode on bf16 inputs, from JAX's own forward's o and LSE.  S = 100 ends
@@ -445,3 +452,146 @@ def test_bf16_dkv_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
     n = 1 if dtype == torch.bfloat16 else 2
     assert launched == [flash_mod._DKV] * n
     assert flash_bwd_dkv_cuda.launches == n
+
+
+def _tc_dq_emulated(q, k, v, o, lse, do, causal: bool, scale: float,
+                    split: bool = True):
+    """K2's bf16 tensor-core arithmetic in plain torch (test only), as the
+    kernel runs it: each q row walks the kv columns 16 at a time (the
+    tiles past the causal diagonal, which the kernel skips, are all masked
+    here and add 0); S = q.K^T of the raw bf16 q with fp32 sums;
+    P = 2^(S c - LSE log2 e), c = scale log2 e, 0 where masked;
+    dS = P (dP - delta) with dP = dO.V^T and delta = rowsum(dO o O);
+    dQ += dS K with dS split into hi + lo bf16 terms (without ``split``,
+    rounded to bf16 alone), fp32 sums; dQ times scale once, rounded to
+    bf16.  [B, S, H, D] / [B, Skv, KVH, D] bf16 -> dq bf16 [B, S, H, D]."""
+    b, sq, h, d = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    qf, dof = (x.float().transpose(1, 2) for x in (q, do))
+    kf, vf = (x.float().repeat_interleave(g, 2).transpose(1, 2)
+              for x in (k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    lse2 = lse.float()[..., None] * LOG2E
+    c = scale * LOG2E
+    dq = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, 16):
+        cols = torch.arange(k0, min(k0 + 16, skv))
+        p = torch.exp2(qf @ kf[:, :, cols].transpose(-1, -2) * c - lse2)
+        if causal:
+            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        ds = p * (dof @ vf[:, :, cols].transpose(-1, -2) - delta)
+        for t in _terms(ds, split):
+            dq += t @ kf[:, :, cols]
+    return (dq * scale).transpose(1, 2).to(torch.bfloat16)
+
+
+def _dq_share(got, want, causal: bool) -> float:
+    """The share of dQ elements [B, S, H, D] that differ at all, causal
+    row 0 left out: it sees key 0 alone, where P = 1 and dP - delta is
+    the rounding residue of dO.v0 - rowsum(dO o O) (~1e-8), noise on
+    every side."""
+    if causal:
+        got, want = got[:, 1:], want[:, 1:]
+    return float((got.float() != want.float()).float().mean())
+
+
+@pytest.mark.parametrize(**BWD_CASES)
+def test_tc_dq_arithmetic_matches_jax_flash(b, s, h, kvh, d, causal, skv):
+    """The emulation against JAX's _bwd (its _bwd_dq_kernel) in interpret
+    mode on bf16 inputs, from JAX's own forward's o and LSE (k and v
+    expanded to q's heads for JAX; the emulation maps GQA heads as the
+    kernel does).  S = 100 ends inside the second 64-row tile.  dQ within
+    BF16_TOL, and at most SPLIT_DIFFERING of its elements differ at all
+    (causal row 0, noise, left out), a bound that dS rounded to bf16
+    alone fails.  The plain version flash_bwd_dq_ref is held to the same
+    output."""
+    skv = s if skv is None else skv
+    q, k, v = _qkv(8, b, s, h, kvh, d, skv)
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = _jax3(q, h), _jax3(k, h), _jax3(v, h), _jax3(do, h)
+    o3, lse3 = jax_flash_fwd(jq, jk, jv, causal, scale, s, skv, True)
+    dq3, _, _ = jax_flash_bwd(jq, jk, jv, o3, lse3, jdo, causal, scale,
+                              s, skv, True)
+
+    def port(x):
+        return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))
+                                ).view(b, h, s, -1)
+    o = port(o3).transpose(1, 2).to(torch.bfloat16)
+    lse = port(lse3)[..., 0]
+    want = port(dq3).transpose(1, 2)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+
+    dq = _tc_dq_emulated(tq, tk, tv, o, lse, tdo, causal, scale)
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert torch.isfinite(dq.float()).all()
+    np.testing.assert_allclose(dq.float().numpy(), want.numpy(),
+                               atol=BF16_TOL)
+    assert _dq_share(dq, want, causal) <= SPLIT_DIFFERING
+    dq_r = _tc_dq_emulated(tq, tk, tv, o, lse, tdo, causal, scale,
+                           split=False)
+    assert _dq_share(dq_r, want, causal) > SPLIT_DIFFERING
+    ref = flash_mod.flash_bwd_dq_ref(tq, tk, tv, o, lse, tdo, causal, scale)
+    np.testing.assert_allclose(ref.float().numpy(), want.numpy(),
+                               atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bf16_dq_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
+    """flash_bwd_dq_cuda holds bf16 q, k, v and dout to the 16-byte row
+    rule before it launches (fp32 keeps the CUDA-core kernel, which reads
+    scalars).  The device check and the launch are stubbed out so that
+    the rule runs on CPU tensors."""
+    launched = []
+    monkeypatch.setattr(flash_mod, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(flash_mod, "_launch",
+                        lambda *a, **kw: launched.append(a[0]))
+    monkeypatch.setattr(flash_bwd_dq_cuda, "launches", 0)
+    q, k, v = (torch.zeros(1, 64, 2, 64, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(1, 2, 64)
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    call = dict(causal=True, sm_scale=0.125)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError,
+                           match="every row of dout must start on 16"):
+            flash_bwd_dq_cuda(q, k, v, shifted, lse, lse, **call)
+    else:
+        flash_bwd_dq_cuda(q, k, v, shifted, lse, lse, **call)
+    flash_bwd_dq_cuda(q, k, v, torch.zeros_like(q), lse, lse, **call)
+    n = 1 if dtype == torch.bfloat16 else 2
+    assert launched == [flash_mod._DQ] * n
+    assert flash_bwd_dq_cuda.launches == n
+
+
+@pytest.mark.parametrize("path", ["flash", "paged"])
+def test_head_dim_256_is_taken_and_matches_jax(path):
+    """gptj-6b's head_dim 256 is among the kernels' head_dims, and the
+    plain versions the CPU runs take it against JAX: flash forward and
+    the gradients of sum(o^2) (GQA 4/2) against JAX's flash kernels in
+    interpret mode, at the fwd/bwd tolerances; paged decode against
+    paged_attention_xla at ATOL 1e-5 (fp32, <= 48 keys)."""
+    rng = np.random.default_rng(12)
+    if path == "flash":
+        assert 256 in flash_mod._HEAD_DIMS
+        q, k, v = _qkv(12, 1, 64, 4, 2, 256)
+        got = _torch_fwd_grads(lambda *a: attention(*a, impl="flash"),
+                               q, k, v)
+        want = _jax_fwd_grads(lambda *a: jax_attention(*a, impl="flash"),
+                              q, k, v)
+        _assert_match(got, want)
+        return
+    assert 256 in paged_mod._HEAD_DIMS
+    rows, heads, kvh, hd, ps, max_pages = 3, 4, 2, 256, 16, 3
+    q = rng.standard_normal((rows, heads, hd)).astype(np.float32)
+    kv = rng.standard_normal((1 + rows * max_pages, kvh, ps, 2 * hd)
+                             ).astype(np.float32)
+    tables = (1 + rng.permutation(rows * max_pages)).reshape(
+        rows, max_pages).astype(np.int32)
+    lengths = np.array([1, ps + 1, ps * max_pages], np.int32)
+    got = paged_mod.paged_attention_ref(*(torch.from_numpy(x) for x in (
+        q, kv, tables, lengths)))
+    want = paged_attention_xla(q, kv, tables, lengths)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)

@@ -180,3 +180,26 @@ def test_bf16_compute_over_fp32_params_matches_jax():
                     block_tables=torch.from_numpy(bt), kv_pools=pools)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-2)
+
+
+@pytest.mark.parametrize("scan", [True, False], ids=["scan", "unrolled"])
+def test_converter_maps_the_partial_remat_tail(scan):
+    """With remat on and remat_layers strictly between 0 and n_layers the
+    JAX model keeps layer 0 under ``blocks`` and layer 1 under
+    ``blocks_tail`` (unscanned: ``block_0`` and ``blocks_tai_0``).  The
+    converted weights give JAX's training-forward logits at ATOL."""
+    over = dict(n_kv_heads=2, scan_layers=scan, remat=True, remat_layers=1)
+    jcfg = jax_config("tiny", **over)
+    tcfg = get_config("tiny", **over)
+    jmodel = JaxGPT(jcfg)
+    toks = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    params = jmodel.init(jax.random.PRNGKey(2), jnp.asarray(toks))["params"]
+    tree = jax.tree.map(np.asarray, nn.meta.unbox(params))
+    assert ("blocks_tail" if scan else "blocks_tai_0") in tree
+    model = GPT(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(tree, tcfg))
+    want = jmodel.apply({"params": tree}, jnp.asarray(toks))
+    with torch.no_grad():
+        got = model(torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)

@@ -17,8 +17,9 @@ most.  A port that skips any one of those roundings is off by 3e-2 to
 The bf16 tensor-core forward (K5-fwd on the card) is emulated here in
 plain torch and held against the library kernel at the tolerances the
 card's checks hold the kernel to against its plain version: o atol 2e-2,
-LSE atol 1e-4.  So is the bf16 tensor-core dK/dV (K5-dKV on the card),
-against the library kernel's VJP: dK and dV atol 2e-2.
+LSE atol 1e-4.  So are the bf16 tensor-core dK/dV (K5-dKV on the card)
+and dQ (K5-dQ), against the library kernel's VJP: dK, dV and dQ atol
+2e-2.
 """
 
 import functools
@@ -82,8 +83,9 @@ def _f32(x) -> np.ndarray:
     (2, 256, 4, 4, 64, 256, True, "float32"),
     (1, 256, 4, 2, 64, 256, True, "float32"),
     (1, 128, 2, 2, 64, 256, False, "float32"),
-    (1, 128, 2, 2, 128, 128, True, "bfloat16")],
-    ids=["causal", "gqa", "full", "bf16_hd128"])
+    (1, 128, 2, 2, 128, 128, True, "bfloat16"),
+    (1, 128, 2, 2, 256, 128, True, "float32")],
+    ids=["causal", "gqa", "full", "bf16_hd128", "hd256"])
 def test_splash_matches_jax_splash_fwd_bwd(interpret, b, s, h, kvh, d, skv,
                                            causal, dtype):
     """Forward and the gradients of sum(o^2) (cotangent 2o on both
@@ -313,9 +315,10 @@ def _tc_fwd_emulated(q, k, v, causal: bool, scale: float,
     (1, 256, 4, 2, 64, 256, True, False),
     (1, 128, 2, 2, 64, 256, False, False),
     (1, 128, 2, 2, 64, 128, True, True),
-    (1, 128, 4, 2, 128, 256, False, True)],
+    (1, 128, 4, 2, 128, 256, False, True),
+    (1, 128, 2, 2, 256, 128, True, False)],
     ids=["hd64", "hd128", "gqa", "full", "low_logits",
-         "low_logits_full_gqa_hd128"])
+         "low_logits_full_gqa_hd128", "hd256"])
 def test_tc_forward_arithmetic_matches_jax_splash(interpret, b, s, h, kvh,
                                                   d, skv, causal, low):
     """The emulation against the library kernel in interpret mode
@@ -416,10 +419,15 @@ def _tc_dkv_emulated(q, k, v, o, lse, do, causal: bool, scale: float,
     return fold(dk), fold(dv)
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d,skv,causal", [
-    (2, 256, 2, 2, 64, 256, True), (1, 128, 2, 2, 128, 128, True),
-    (1, 256, 4, 2, 64, 256, True), (1, 128, 2, 1, 64, 256, False)],
-    ids=["hd64", "hd128", "gqa", "full_gqa"])
+BWD_CASES = dict(
+    argnames="b,s,h,kvh,d,skv,causal",
+    argvalues=[(2, 256, 2, 2, 64, 256, True), (1, 128, 2, 2, 128, 128, True),
+               (1, 256, 4, 2, 64, 256, True), (1, 128, 2, 1, 64, 256, False),
+               (1, 128, 2, 2, 256, 128, True)],
+    ids=["hd64", "hd128", "gqa", "full_gqa", "hd256"])
+
+
+@pytest.mark.parametrize(**BWD_CASES)
 def test_tc_dkv_arithmetic_matches_jax_splash(interpret, b, s, h, kvh, d,
                                               skv, causal):
     """The emulation against the library kernel's VJP in interpret mode on
@@ -511,3 +519,120 @@ def test_bf16_dkv_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
     n = 1 if dtype == torch.bfloat16 else 2
     assert launched == [splash._DKV] * n
     assert splash.splash_bwd_dkv_cuda.launches == n
+
+
+def _tc_dq_emulated(q, k, v, o, lse, do, causal: bool, scale: float,
+                    rounded: bool = True):
+    """K5-dQ's bf16 tensor-core arithmetic in plain torch (test only), as
+    the kernel runs it: q_s = bf16(q * bf16(scale)); each q row walks the
+    kv columns 16 at a time (tiles the table skips are all masked here
+    and add 0); S = q_s.K^T with fp32 sums; P = 2^(S log2 e - LSE log2 e),
+    0 where masked; dS = P (dP - delta) with dP = dO.V^T and
+    delta = rowsum(dO o O); dQ_s += bf16(dS) K (without ``rounded``, dS in
+    fp32), fp32 sums; dq = bf16(bf16(dQ_s) * bf16(scale)).
+    [B, S, H, D] / [B, Skv, KVH, D] bf16 -> dq bf16 [B, S, H, D]."""
+    b, sq, h, d = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    sc = splash.dtype_scale(scale, q.dtype)
+    qs = (q * sc).float().transpose(1, 2)
+    dof = do.float().transpose(1, 2)
+    kf, vf = (x.float().repeat_interleave(g, 2).transpose(1, 2)
+              for x in (k, v))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)[..., None]
+    lse2 = lse.float()[..., None] * LOG2E
+    dq = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, 16):
+        cols = torch.arange(k0, k0 + 16)
+        p = torch.exp2(qs @ kf[:, :, cols].transpose(-1, -2) * LOG2E - lse2)
+        if causal:
+            p = torch.where(cols[None, :] <= rows, p, 0.0)
+        ds = p * (dof @ vf[:, :, cols].transpose(-1, -2) - delta)
+        if rounded:
+            ds = ds.to(torch.bfloat16).float()
+        dq += ds @ kf[:, :, cols]
+    return (dq.to(torch.bfloat16) * sc).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(**BWD_CASES)
+def test_tc_dq_arithmetic_matches_jax_splash(interpret, b, s, h, kvh, d,
+                                             skv, causal):
+    """The emulation against the library kernel's VJP in interpret mode on
+    bf16 inputs, fed as ray_tpu/ops/splash.py feeds it (q * scale in
+    bf16, [H, S, D] per example, k and v expanded to q's heads), from the
+    library's own forward's o and LSE; JAX's VJP of q * scale takes the
+    library's dq_s to dq = bf16(dq_s * scale).  dQ within BF16_TOL; the
+    share of its elements that differ at all (causal row 0, noise on
+    every side, left out) is reported and at most SPLIT_DIFFERING, a
+    bound that dS kept in fp32 fails (the library rounds it).  The plain
+    version splash_bwd_dq_ref is held to the same output."""
+    q, k, v = _qkv(13, b, s, h, kvh, d, skv)
+    do = np.random.default_rng(14).standard_normal(q.shape).astype(
+        np.float32)
+    scale = d ** -0.5
+    kind = splash_attention_mask.CausalMask if causal else \
+        splash_attention_mask.FullMask
+    mask = splash_attention_mask.MultiHeadMask([kind((s, skv))] * h)
+    with_lse = splash_attention_kernel.make_splash_mha(
+        mask=mask, head_shards=1, q_seq_shards=1, save_residuals=True)
+    kernel = splash_attention_kernel.make_splash_mha(
+        mask=mask, head_shards=1, q_seq_shards=1)
+    jq, jk, jv, jdo = (jnp.asarray(np.repeat(x, h // x.shape[2], axis=2),
+                                   jnp.bfloat16).transpose(0, 2, 1, 3)
+                       for x in (q, k, v, do))
+    jo, (jlse,) = jax.vmap(with_lse)(jq * scale, jk, jv)
+    _, vjp = jax.vjp(lambda a, b_, c: jax.vmap(kernel)(a * scale, b_, c),
+                     jq, jk, jv)
+    jdq = vjp(jdo)[0]
+    o = torch.tensor(_f32(jo).transpose(0, 2, 1, 3)).to(torch.bfloat16)
+    lse = torch.tensor(_f32(jlse))
+    want = torch.tensor(_f32(jdq).transpose(0, 2, 1, 3))
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+
+    def share(dq):
+        got, ref = (dq[:, 1:], want[:, 1:]) if causal else (dq, want)
+        return float((got.float() != ref).float().mean())
+    dq = _tc_dq_emulated(tq, tk, tv, o, lse, tdo, causal, scale)
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    assert torch.isfinite(dq.float()).all()
+    np.testing.assert_allclose(_f32(dq), want.numpy(), atol=BF16_TOL)
+    print(f"K5-dQ emulation: {share(dq):.4%} of dQ differs from the "
+          "library's")
+    assert share(dq) <= SPLIT_DIFFERING
+    assert share(_tc_dq_emulated(tq, tk, tv, o, lse, tdo, causal, scale,
+                                 rounded=False)) > SPLIT_DIFFERING
+    ref = splash.splash_bwd_dq_ref(tq, tk, tv, o, lse, tdo,
+                                   splash.make_mask(h, s, skv, causal), scale)
+    np.testing.assert_allclose(_f32(ref), want.numpy(), atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_bf16_dq_wrapper_applies_row_rule_to_dout(monkeypatch, dtype):
+    """splash_bwd_dq_cuda holds bf16 q, k, v and dout to the 16-byte row
+    rule before it launches (fp32 keeps the CUDA-core kernel).  The
+    device check and the launch are stubbed out so that the rule runs on
+    CPU tensors."""
+    launched = []
+    monkeypatch.setattr(splash, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(splash, "_launch",
+                        lambda *a, **kw: launched.append(a[0]))
+    monkeypatch.setattr(splash.splash_bwd_dq_cuda, "launches", 0)
+    q, k, v = (torch.zeros(1, 128, 2, 64, dtype=dtype) for _ in range(3))
+    lse = torch.zeros(1, 2, 128)
+    mask = splash.make_mask(2, 128, 128, True)
+    shifted = torch.zeros(q.numel() + 1, dtype=dtype)[1:].view(q.shape)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError,
+                           match="every row of dout must start on 16"):
+            splash.splash_bwd_dq_cuda(q, k, v, shifted, lse, lse, mask,
+                                      sm_scale=0.125)
+    else:
+        splash.splash_bwd_dq_cuda(q, k, v, shifted, lse, lse, mask,
+                                  sm_scale=0.125)
+    splash.splash_bwd_dq_cuda(q, k, v, torch.zeros_like(q), lse, lse, mask,
+                              sm_scale=0.125)
+    n = 1 if dtype == torch.bfloat16 else 2
+    assert launched == [splash._DQ] * n
+    assert splash.splash_bwd_dq_cuda.launches == n

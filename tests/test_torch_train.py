@@ -64,31 +64,62 @@ def test_softmax_cross_entropy_matches_jax():
                                    rtol=RTOL, atol=1e-7)
 
 
-@pytest.mark.parametrize("transpose", [False, True], ids=["kernel", "tied"])
-def test_chunked_lm_loss_matches_jax(transpose):
-    """S = 50 is padded to the 16-token chunks; z-loss and a mask on."""
+@pytest.mark.parametrize("transpose,bf16", [(False, False), (True, False),
+                                             (True, True)],
+                         ids=["kernel", "tied", "tied_bf16"])
+def test_chunked_lm_loss_matches_jax(transpose, bf16):
+    """fp32: S = 50 is padded to the 16-token chunks; z-loss and a mask
+    on.  bf16 (``tied_bf16``): hidden [2, 256, 128] in bf16 over a tied
+    fp32 weight of a 4096-token vocab, z-loss 1e-4, chunks of 128.  JAX
+    sums each chunk's logits into fp32 and casts the weight inside each
+    chunk, so its fp32 weight gradient sums fp32 per-chunk terms: the
+    loss within 1e-5 relative, the weight gradient within 1e-3 of the
+    largest.  The hidden gradient is bf16 on both sides: within 1e-3 of
+    the largest plus one bf16 rounding step (2^-7 relative) of each
+    element, and at most 0.1% of its elements differ at all.  Logits
+    rounded to bf16 miss all three gradient bounds."""
     rng = np.random.default_rng(1)
-    hidden = rng.standard_normal((2, 50, 8)).astype(np.float32)
-    w = rng.standard_normal((40, 8) if transpose else (8, 40)).astype(
+    if bf16:
+        (b, s, d), v, z, chunk = (2, 256, 128), 4096, 1e-4, 128
+    else:
+        (b, s, d), v, z, chunk = (2, 50, 8), 40, 1e-3, 16
+    hidden = rng.standard_normal((b, s, d)).astype(np.float32)
+    w = rng.standard_normal((v, d) if transpose else (d, v)).astype(
         np.float32)
-    labels = rng.integers(0, 40, (2, 50)).astype(np.int32)
-    mask = (rng.random((2, 50)) < 0.8).astype(np.float32)
-    h, wt = _t(hidden).requires_grad_(), _t(w).requires_grad_()
-    loss, denom = chunked_lm_loss(h, wt, _t(labels), _t(mask), 1e-3, 16,
+    if bf16:
+        w *= 0.05
+        hidden = np.asarray(jnp.asarray(jnp.asarray(hidden, jnp.bfloat16),
+                                        jnp.float32))
+    labels = rng.integers(0, v, (b, s)).astype(np.int32)
+    mask = (rng.random((b, s)) < 0.8).astype(np.float32)
+    h = _t(hidden).to(torch.bfloat16 if bf16 else torch.float32)
+    h.requires_grad_()
+    wt = _t(w).requires_grad_()
+    loss, denom = chunked_lm_loss(h, wt, _t(labels), _t(mask), z, chunk,
                                   transpose_weight=transpose)
     loss.backward()
 
     def f(hh, ww):
-        return jax_chunked(hh, ww, labels, mask, 1e-3, 16,
+        return jax_chunked(hh, ww, labels, mask, z, chunk,
                            transpose_weight=transpose)
     (want, wdenom), (gh, gw) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(hidden, w)
+        f, argnums=(0, 1), has_aux=True)(
+            jnp.asarray(hidden, jnp.bfloat16 if bf16 else jnp.float32), w)
     np.testing.assert_allclose(loss.item(), float(want), rtol=RTOL)
     assert float(denom) == float(wdenom)
-    np.testing.assert_allclose(h.grad.numpy(), np.asarray(gh), rtol=RTOL,
-                               atol=1e-7)
-    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw), rtol=RTOL,
-                               atol=1e-7)
+    gh, gw = (np.asarray(jnp.asarray(x, jnp.float32)) for x in (gh, gw))
+    got_h = h.grad.float().numpy()
+    if not bf16:
+        np.testing.assert_allclose(got_h, gh, rtol=RTOL, atol=1e-7)
+        np.testing.assert_allclose(wt.grad.numpy(), gw, rtol=RTOL,
+                                   atol=1e-7)
+        return
+    assert h.grad.dtype == torch.bfloat16 and wt.grad.dtype == torch.float32
+    np.testing.assert_allclose(wt.grad.numpy(), gw, rtol=0,
+                               atol=1e-3 * np.abs(gw).max())
+    np.testing.assert_allclose(got_h, gh, rtol=2.0 ** -7,
+                               atol=1e-3 * np.abs(gh).max())
+    assert (got_h != gh).mean() <= 1e-3
 
 
 @pytest.mark.parametrize("warmup,decay", [(10, 30), (0, 5), (4, 3)])
