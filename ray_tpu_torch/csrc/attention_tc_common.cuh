@@ -48,12 +48,13 @@ inline cudaError_t launch(Fn kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// What the CUDA runtime reports of a kernel of kThreads threads and `smem`
-// bytes of dynamic shared memory, into out[3]: registers per thread, local
-// memory bytes per thread (spills and stack) and resident blocks per SM;
-// the error of the query.
+// What the CUDA runtime reports of a kernel of `threads` threads and
+// `smem` bytes of dynamic shared memory, into out[3]: registers per thread,
+// local memory bytes per thread (spills and stack) and resident blocks per
+// SM; the error of the query.
 template <typename Fn>
-inline cudaError_t usage(Fn kernel, size_t smem, int* out) {
+inline cudaError_t usage(Fn kernel, size_t smem, int* out,
+                         int threads = kThreads) {
   cudaFuncAttributes fa{};
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err == cudaSuccess)
@@ -62,7 +63,7 @@ inline cudaError_t usage(Fn kernel, size_t smem, int* out) {
         static_cast<int>(smem));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
-                                                        kThreads, smem);
+                                                        threads, smem);
   out[0] = fa.numRegs;
   out[1] = static_cast<int>(fa.localSizeBytes);
   return err;

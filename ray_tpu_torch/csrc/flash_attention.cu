@@ -51,9 +51,10 @@
 //
 // K1, K2 and K3 on fp32 inputs are the first, simple versions: products
 // as fp32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16 tensor
-// cores), at head_dim 64 and 128, and K1 also at 256 (214 KB of shared
-// memory; K2's and K3's fp32 tiles at 256 would need 280 and 296 KB, over
-// the card's 227 KB per block, and are refused).  What bounds them on
+// cores), at head_dim 64, 128 and 256.  At 256 K1 keeps its 64-row tiles
+// (214 KB of shared memory), while a K2 block owns a 32-row q tile and a
+// K3 block a 32-row kv tile (206 and 214 KB; 64 rows would need 280 and
+// 296 KB, over the card's 227 KB per block).  What bounds them on
 // this card: operations.  At the training shapes (S = 1024, head_dim 64)
 // each (query, key) pair costs 4-8 * head_dim flops against a few bytes,
 // far above the ~295 flops per byte where the tensor cores, not the
@@ -70,7 +71,8 @@
 //     query heads of its group and their q tiles, so dK and dV are written
 //     once, with no atomics and no expanded copy of K and V;
 //   - a 16 x 16 grid of threads gives each thread a 4 x 4 patch of every
-//     score tile and 4 rows x head_dim / 16 columns of each accumulator;
+//     score tile (2 x 4 where the block owns 32 rows) and 4 (2) rows x
+//     head_dim / 16 columns of each accumulator;
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - the ragged edge (S not a multiple of 64) is loaded as zeros and
 //     masked, and is never stored.
@@ -99,6 +101,10 @@ constexpr int kThreads = 256;             // a 16 x 16 grid of threads
 constexpr int kLP = kTile + 1;            // padded row of a [64, 64] tile
 constexpr float kNegInf = -1e30f;         // the reference's mask value
 constexpr unsigned kFull = 0xffffffffu;
+// rows of the tile a fp32 K2 (q rows) or K3 (kv rows) block owns: 32 at
+// head_dim 256, where two 64-row fp32 tiles of each operand do not fit
+template <int D>
+constexpr int kOwn = D > 128 ? 32 : kTile;
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
@@ -135,13 +141,13 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stage rows [row0, row0 + 64) of one head (src points at its row 0) as
-// fp32 in a [64, D + 1] tile, times `mul`; rows at or past n are zeros.
-template <typename T, int D>
+// Stage rows [row0, row0 + R) of one head (src points at its row 0) as
+// fp32 in a [R, D + 1] tile, times `mul`; rows at or past n are zeros.
+template <typename T, int D, int R = kTile>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int row0,
                                           int n, float mul) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int row = row0 + r;
     dst[r * (D + 1) + c] =
@@ -149,53 +155,55 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-// s[i][j] = sum_d A[ty*4 + i][d] * Bm[tx + 16 j][d] over [64, D + 1] tiles
-template <int D>
+// s[i][j] = sum_d A[ty*I + i][d] * Bm[tx + 16 j][d] over [16 I, D + 1]
+// and [64, D + 1] tiles
+template <int D, int I>
 __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
-                                      float (&s)[4][4]) {
+                                      float (&s)[I][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[I], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
+    for (int i = 0; i < I; ++i) a[i] = A[(ty * I + i) * (D + 1) + d];
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
 }
 
-// acc[i][j] += sum_c P[ty*4 + i][c] * Bm[c][tx + 16 j]; P is [64, 65],
+// acc[i][j] += sum_c P[ty*I + i][c] * Bm[c][tx + 16 j]; P is [16 I, 65],
 // Bm [64, D + 1]
-template <int D>
+template <int D, int I>
 __device__ __forceinline__ void mm_nn(const float* P, const float* Bm,
-                                      float (&acc)[4][D / 16]) {
+                                      float (&acc)[I][D / 16]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll 4
   for (int c = 0; c < kTile; ++c) {
-    float p[4];
+    float p[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * kLP + c];
+    for (int i = 0; i < I; ++i) p[i] = P[(ty * I + i) * kLP + c];
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
       const float b = Bm[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], b, acc[i][j]);
+      for (int i = 0; i < I; ++i) acc[i][j] = fmaf(p[i], b, acc[i][j]);
     }
   }
 }
 
-// number of k tiles a q tile starting at q0 attends to
-__device__ __forceinline__ int k_tiles(const Params& p, int q0) {
+// number of k tiles the `rows` q rows from q0 on attend to
+__device__ __forceinline__ int k_tiles(const Params& p, int q0,
+                                       int rows = kTile) {
   const int n = (p.Skv + kTile - 1) / kTile;
-  return p.causal ? min(n, (q0 + kTile - 1) / kTile + 1) : n;
+  return p.causal ? min(n, (q0 + rows - 1) / kTile + 1) : n;
 }
 
 // K1 on fp32 inputs: grid (B * H, q tiles), the last q tile first.
@@ -233,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     load_tile<T, D>(Vs, v, p.v_ss, k0, p.Skv, 1.f);
     __syncthreads();
     float s[4][4];
-    mm_nt<D>(Qs, Ks, s);
+    mm_nt<D, 4>(Qs, Ks, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -259,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    mm_nn<D>(Ps, Vs, acc);
+    mm_nn<D, 4>(Ps, Vs, acc);
   }
   T* o = static_cast<T*>(p.out);
 #pragma unroll
@@ -310,20 +318,22 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::forward_block<D>(a, walk, b, h, q0);
 }
 
-// K2 on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+// K2 on fp32 inputs: grid (B * H, q tiles of kOwn<D> rows), the last q
+// tile first.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   using T = float;
   constexpr int LD = D + 1;
+  constexpr int R = kOwn<D>, I = R / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
+  float* Qs = smem;                 // [R, D + 1]
+  float* dOs = Qs + R * LD;         // [R, D + 1]
+  float* Ks = dOs + R * LD;         // [64, D + 1]
+  float* Vs = Ks + kTile * LD;      // [64, D + 1]
+  float* dSs = Vs + kTile * LD;     // [R, 65]
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
@@ -332,46 +342,47 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
                   (static_cast<long long>(b) * p.Sq * p.H + h) * D;
   const long long vec = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  load_tile<T, D>(Qs, q, p.q_ss, q0, p.Sq, p.scale);
-  load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, p.Sq, 1.f);
-  float lse[4], delta[4], acc[4][D / 16];
+  load_tile<T, D, R>(Qs, q, p.q_ss, q0, p.Sq, p.scale);
+  load_tile<T, D, R>(dOs, dout, static_cast<long long>(p.H) * D, q0, p.Sq,
+                     1.f);
+  float lse[I], delta[I], acc[I][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + ty * I + i;
     lse[i] = row < p.Sq ? p.lse[vec + row] : 0.f;
     delta[i] = row < p.Sq ? p.delta[vec + row] : 0.f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
   }
-  const int n_kt = k_tiles(p, q0);
+  const int n_kt = k_tiles(p, q0, R);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
     load_tile<T, D>(Ks, k, p.k_ss, k0, p.Skv, 1.f);
     load_tile<T, D>(Vs, v, p.v_ss, k0, p.Skv, 1.f);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_nt<D>(Qs, Ks, s);
-    mm_nt<D>(dOs, Vs, dp);
+    float s[I][4], dp[I][4];
+    mm_nt<D, I>(Qs, Ks, s);
+    mm_nt<D, I>(dOs, Vs, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < I; ++i) {
+      const int row = q0 + ty * I + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const bool masked = col >= p.Skv || (p.causal && col > row);
         const float pr = masked ? 0.f : expf(s[i][j] - lse[i]);
-        dSs[(ty * 4 + i) * kLP + tx + 16 * j] =
+        dSs[(ty * I + i) * kLP + tx + 16 * j] =
             pr * (dp[i][j] - delta[i]) * p.scale;
       }
     }
     __syncthreads();
-    mm_nn<D>(dSs, Ks, acc);
+    mm_nn<D, I>(dSs, Ks, acc);
   }
   T* dq = static_cast<T*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + ty * I + i;
     if (row >= p.Sq) continue;
     const long long base =
         ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
@@ -413,31 +424,34 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::dq_block<D>(a, walk, b, h, q0);
 }
 
-// K3 on fp32 inputs: grid (B * KVH, k tiles), the first k tile (the
-// longest causal loop) first.  Tiles are transposed against K2: a
-// thread's patch rows are keys and its columns queries.
+// K3 on fp32 inputs: grid (B * KVH, k tiles of kOwn<D> rows), the first
+// k tile (the longest causal loop) first.  Tiles are transposed against
+// K2: a thread's patch rows are keys and its columns queries.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   using T = float;
   constexpr int LD = D + 1;
+  constexpr int R = kOwn<D>, I = R / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;     // P^T [key][query]
-  float* dSs = Ps + kTile * kLP;    // dS^T [key][query]
+  float* Ks = smem;                 // [R, D + 1]
+  float* Vs = Ks + R * LD;          // [R, D + 1]
+  float* Qs = Vs + R * LD;          // [64, D + 1]
+  float* dOs = Qs + kTile * LD;     // [64, D + 1]
+  float* Ps = dOs + kTile * LD;     // P^T [key][query], [R, 65]
+  float* dSs = Ps + R * kLP;        // dS^T [key][query], [R, 65]
   const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
   const int g = p.H / p.KVH;
-  const int k0 = blockIdx.y * kTile;
+  const int k0 = blockIdx.y * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_tile<T, D>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
-                  p.k_ss, k0, p.Skv, 1.f);
-  load_tile<T, D>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-                  p.v_ss, k0, p.Skv, 1.f);
-  float acc_k[4][D / 16], acc_v[4][D / 16];
+  load_tile<T, D, R>(Ks,
+                     static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
+                     p.k_ss, k0, p.Skv, 1.f);
+  load_tile<T, D, R>(Vs,
+                     static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
+                     p.v_ss, k0, p.Skv, 1.f);
+  float acc_k[I][D / 16], acc_v[I][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
   const int n_qt = (p.Sq + kTile - 1) / kTile;
@@ -455,9 +469,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, p.Sq,
                       1.f);
       __syncthreads();
-      float st[4][4], dpt[4][4];
-      mm_nt<D>(Ks, Qs, st);
-      mm_nt<D>(Vs, dOs, dpt);
+      float st[I][4], dpt[I][4];
+      mm_nt<D, I>(Ks, Qs, st);
+      mm_nt<D, I>(Vs, dOs, dpt);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qrow = q0 + tx + 16 * j;
@@ -465,24 +479,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
         const float lse = qvalid ? p.lse[vec + qrow] : 0.f;
         const float delta = qvalid ? p.delta[vec + qrow] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kcol = k0 + ty * 4 + i;
+        for (int i = 0; i < I; ++i) {
+          const int kcol = k0 + ty * I + i;
           const bool masked = !qvalid || (p.causal && qrow < kcol);
           const float pr = masked ? 0.f : expf(st[i][j] - lse);
-          Ps[(ty * 4 + i) * kLP + tx + 16 * j] = pr;
-          dSs[(ty * 4 + i) * kLP + tx + 16 * j] = pr * (dpt[i][j] - delta);
+          Ps[(ty * I + i) * kLP + tx + 16 * j] = pr;
+          dSs[(ty * I + i) * kLP + tx + 16 * j] = pr * (dpt[i][j] - delta);
         }
       }
       __syncthreads();
-      mm_nn<D>(Ps, dOs, acc_v);
-      mm_nn<D>(dSs, Qs, acc_k);   // q is pre-scaled, so dK is exact
+      mm_nn<D, I>(Ps, dOs, acc_v);
+      mm_nn<D, I>(dSs, Qs, acc_k);   // q is pre-scaled, so dK is exact
     }
   }
   T* dk = static_cast<T*>(p.dk);
   T* dv = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = k0 + ty * I + i;
     if (row >= p.Skv) continue;
     const long long base =
         ((static_cast<long long>(b) * p.Skv + row) * p.KVH + kvh) * D;
@@ -544,12 +558,17 @@ size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
   if (kind == kDq && dtype == 1) return attn_tc::dq_smem_bytes(d);
   if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
+  // fp32: [64, d + 1] tiles, and in the backward the block's own tiles
+  // and score tiles of own_rows rows (kOwn)
+  const size_t own_rows = d > 128 ? 32 : kTile;
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
+  const size_t own = own_rows * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
+  const size_t own_score = own_rows * kLP;
   switch (kind) {
     case kFwd: return (3 * tile + score) * sizeof(float);
-    case kDq: return (4 * tile + score) * sizeof(float);
-    case kDkv: return (4 * tile + 2 * score) * sizeof(float);
+    case kDq: return (2 * own + 2 * tile + own_score) * sizeof(float);
+    case kDkv: return (2 * own + 2 * tile + 2 * own_score) * sizeof(float);
   }
   return 0;
 }
@@ -588,8 +607,7 @@ cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
-  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones,
-  // whose backward tiles do not fit a block at head_dim 256
+  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones
   if constexpr (dtype == 1) {
     if (kind == kFwd) return run_fwd_tc<D>(p, stream);
     if (kind == kDq) return run_dq_tc<D>(p, stream);
@@ -600,18 +618,26 @@ cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
       return attn_tc::launch(flash_fwd_kernel<D>,
                              dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
                              kThreads, smem, stream, p);
-    if constexpr (D > 128) {
-      return cudaErrorInvalidValue;
-    } else {
-      if (kind == kDq)
-        return attn_tc::launch(flash_bwd_dq_kernel<D>,
-                               dim3(p.B * p.H, (p.Sq + kTile - 1) / kTile),
-                               kThreads, smem, stream, p);
-      return attn_tc::launch(flash_bwd_dkv_kernel<D>,
-                             dim3(p.B * p.KVH, (p.Skv + kTile - 1) / kTile),
+    if (kind == kDq)
+      return attn_tc::launch(flash_bwd_dq_kernel<D>,
+                             dim3(p.B * p.H, (p.Sq + kOwn<D> - 1) / kOwn<D>),
                              kThreads, smem, stream, p);
-    }
+    return attn_tc::launch(flash_bwd_dkv_kernel<D>,
+                           dim3(p.B * p.KVH, (p.Skv + kOwn<D> - 1) / kOwn<D>),
+                           kThreads, smem, stream, p);
   }
+}
+
+// What the CUDA runtime reports of the fp32 kernel of `kind` (0 K1, 1 K2,
+// 2 K3) at head_dim D, into out[3] (see rt_flash_fwd_usage).
+template <int D>
+int fp32_usage(int kind, int* out) {
+  const size_t smem = smem_bytes(kind, 0, D);
+  if (kind == kFwd)
+    return attn_tc::usage(flash_fwd_kernel<D>, smem, out, kThreads);
+  if (kind == kDq)
+    return attn_tc::usage(flash_bwd_dq_kernel<D>, smem, out, kThreads);
+  return attn_tc::usage(flash_bwd_dkv_kernel<D>, smem, out, kThreads);
 }
 
 // What the CUDA runtime reports of a bf16 kernel at head_dim hd (see
@@ -634,13 +660,20 @@ int tc_usage(int kind, int hd, int* out) {
   return cudaErrorInvalidValue;
 }
 
+int fp32_usage(int kind, int hd, int* out) {
+  if (kind < kFwd || kind > kDkv) return cudaErrorInvalidValue;
+  if (hd == 64) return fp32_usage<64>(kind, out);
+  if (hd == 128) return fp32_usage<128>(kind, out);
+  if (hd == 256) return fp32_usage<256>(kind, out);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block of `kind` (0 K1, 1 K2, 2 K3) needs for
-// dtype (0 fp32, 1 bf16) at head_dim hd; the wrapper refuses shapes whose
-// need exceeds the card's per-block limit.
+// dtype (0 fp32, 1 bf16) at head_dim hd (every one fits an H100 block).
 size_t rt_flash_smem_bytes(int kind, int dtype, int hd) {
   return smem_bytes(kind, dtype, hd);
 }
@@ -656,12 +689,17 @@ int rt_flash_dq_usage(int hd, int* out) { return tc_usage(kDq, hd, out); }
 // The same of K3's bf16 kernel.
 int rt_flash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 
+// The same of the fp32 kernel of `kind` (0 K1, 1 K2, 2 K3).
+int rt_flash_fp32_usage(int kind, int hd, int* out) {
+  return fp32_usage(kind, hd, out);
+}
+
 // One launch of K1 (kind 0), K2 (kind 1) or K3 (kind 2).  dtype 0 is fp32,
 // 1 is bf16, for q, k, v, dout and the outputs alike.  strides holds the
 // (batch, seq, head) strides in elements of q, k and v, in that order; their
 // head_dim stride is 1.  dout, out, dk and dv are contiguous; lse and delta
 // are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  head_dim
-// is 64, 128 or 256 (fp32: K1 only at 256).  K1 on bf16 needs the q, k and
+// is 64, 128 or 256.  K1 on bf16 needs the q, k and
 // v pointers and strides on 16 bytes, K2 and K3 on bf16 those of q, k, v
 // and dout (cudaErrorMisalignedAddress otherwise).  Returns the
 // cudaError_t of the launch.

@@ -67,9 +67,11 @@
 // cores, not the memory, become the limit.  K5-fwd, K5-dQ and K5-dKV on
 // fp32 are the first, simple versions: the products run as fp32 FMAs on
 // the CUDA cores from shared memory, as K1-K3 on fp32 do
-// (csrc/flash_attention.cu), at head_dim 64 and 128, and K5-fwd also at
-// 256 (the backward's fp32 tiles do not fit a block there).  Their
-// design:
+// (csrc/flash_attention.cu), at head_dim 64, 128 and 256.  At 256 a K5-dQ
+// block owns a 32-row q tile and a K5-dKV block a 32-row kv tile, as K2
+// and K3 do there (64-row fp32 tiles of every operand do not fit a
+// block); each walks the table list of the 64-row tile that holds it,
+// whose partial entries take the element mask.  Their design:
 //   - a thread block holds 64 x 64 fp32 tiles in shared memory (rows padded
 //     by one word against bank conflicts), and a loop over the block's
 //     table entries replaces the TPU's sequential grid dimension, which
@@ -79,7 +81,8 @@
 //     (batch, kv head, kv tile) and walks the lists of the g query heads
 //     of its group, so dK and dV are written once, with no atomics;
 //   - a 16 x 16 grid of threads gives each thread a 4 x 4 patch of every
-//     score tile and 4 rows x head_dim / 16 columns of each accumulator;
+//     score tile (2 x 4 where the block owns 32 rows) and 4 (2) rows x
+//     head_dim / 16 columns of each accumulator;
 //     row maxima and sums reduce with shuffles inside 16-lane groups;
 //   - q_len and kv_len are multiples of 64 (the library's 128-row blocks),
 //     so there is no ragged edge.
@@ -111,6 +114,11 @@ constexpr int kLP = kTile + 1;             // padded row of a [64, 64] tile
 constexpr float kMask =
     static_cast<float>(-0.7 * static_cast<double>(FLT_MAX));
 constexpr unsigned kFull = 0xffffffffu;
+// rows of the tile a fp32 K5-dQ (q rows) or K5-dKV (kv rows) block owns:
+// 32 at head_dim 256, where two 64-row fp32 tiles of each operand do not
+// fit
+template <int D>
+constexpr int kOwn = D > 128 ? 32 : kTile;
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
@@ -155,59 +163,60 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stage rows [row0, row0 + 64) of one head (src points at its row 0) as
-// fp32 in a [64, D + 1] tile, each value times `mul` rounded to T (with
+// Stage rows [row0, row0 + R) of one head (src points at its row 0) as
+// fp32 in a [R, D + 1] tile, each value times `mul` rounded to T (with
 // mul = 1 the value itself; with the scale, q scaled in its own dtype).
-template <typename T, int D>
+template <typename T, int D, int R = kTile>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           long long row_stride, int row0,
                                           float mul) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < R * D; e += kThreads) {
     const int r = e / D, c = e % D;
     dst[r * (D + 1) + c] =
         round_to<T>(to_f(src[(row0 + r) * row_stride + c]) * mul);
   }
 }
 
-// s[i][j] = sum_d A[ty*4 + i][d] * Bm[tx + 16 j][d] over [64, D + 1] tiles
-template <int D>
+// s[i][j] = sum_d A[ty*I + i][d] * Bm[tx + 16 j][d] over [16 I, D + 1]
+// and [64, D + 1] tiles
+template <int D, int I>
 __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
-                                      float (&s)[4][4]) {
+                                      float (&s)[I][4]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[I], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
+    for (int i = 0; i < I; ++i) a[i] = A[(ty * I + i) * (D + 1) + d];
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = Bm[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
 }
 
-// acc[i][j] += sum_c P[ty*4 + i][c] * Bm[c][tx + 16 j]; P is [64, 65],
+// acc[i][j] += sum_c P[ty*I + i][c] * Bm[c][tx + 16 j]; P is [16 I, 65],
 // Bm [64, D + 1]
-template <int D>
+template <int D, int I>
 __device__ __forceinline__ void mm_nn(const float* P, const float* Bm,
-                                      float (&acc)[4][D / 16]) {
+                                      float (&acc)[I][D / 16]) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll 4
   for (int c = 0; c < kTile; ++c) {
-    float p[4];
+    float p[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * kLP + c];
+    for (int i = 0; i < I; ++i) p[i] = P[(ty * I + i) * kLP + c];
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
       const float b = Bm[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], b, acc[i][j]);
+      for (int i = 0; i < I; ++i) acc[i][j] = fmaf(p[i], b, acc[i][j]);
     }
   }
 }
@@ -252,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
     load_tile<T, D>(Vs, v, p.v_ss, k0, 1.f);
     __syncthreads();
     float s[4][4];
-    mm_nt<D>(Qs, Ks, s);
+    mm_nt<D, 4>(Qs, Ks, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -277,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) splash_fwd_kernel(Params p) {
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    mm_nn<D>(Ps, Vs, acc);
+    mm_nn<D, 4>(Ps, Vs, acc);
   }
   T* o = static_cast<T*>(p.out);
 #pragma unroll
@@ -334,22 +343,22 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::forward_block<D>(a, walk, b, h, qt * kTile);
 }
 
-// K5-dQ on fp32 inputs: grid (B * H, q tiles), the last q tile first.
+// K5-dQ on fp32 inputs: grid (B * H, q tiles of kOwn<D> rows), the last q
+// tile first.
 template <int D>
 __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
   using T = float;
   constexpr int LD = D + 1;
+  constexpr int R = kOwn<D>, I = R / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
+  float* Qs = smem;                 // [R, D + 1]
+  float* dOs = Qs + R * LD;         // [R, D + 1]
+  float* Ks = dOs + R * LD;         // [64, D + 1]
+  float* Vs = Ks + kTile * LD;      // [64, D + 1]
+  float* dSs = Vs + kTile * LD;     // [R, 65]
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int nq = gridDim.y;
-  const int qt = nq - 1 - blockIdx.y;
-  const int q0 = qt * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
@@ -357,15 +366,17 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) +
                   (static_cast<long long>(b) * p.Sq * p.H + h) * D;
   const long long vec = (static_cast<long long>(b) * p.H + h) * p.Sq;
-  const int* list = p.ptr + p.head_map[h] * (nq + 1) + qt;
+  // the list of the 64-row q tile that holds these rows
+  const int* list =
+      p.ptr + p.head_map[h] * (p.Sq / kTile + 1) + q0 / kTile;
   const int e0 = list[0], e1 = list[1];
 
-  load_tile<T, D>(Qs, q, p.q_ss, q0, p.scale);
-  load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, 1.f);
-  float lse[4], delta[4], acc[4][D / 16];
+  load_tile<T, D, R>(Qs, q, p.q_ss, q0, p.scale);
+  load_tile<T, D, R>(dOs, dout, static_cast<long long>(p.H) * D, q0, 1.f);
+  float lse[I], delta[I], acc[I][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + ty * I + i;
     lse[i] = p.lse[vec + row];
     delta[i] = p.delta[vec + row];
 #pragma unroll
@@ -379,27 +390,27 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dq_kernel(Params p) {
     load_tile<T, D>(Ks, k, p.k_ss, k0, 1.f);
     load_tile<T, D>(Vs, v, p.v_ss, k0, 1.f);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    mm_nt<D>(Qs, Ks, s);
-    mm_nt<D>(dOs, Vs, dp);
+    float s[I][4], dp[I][4];
+    mm_nt<D, I>(Qs, Ks, s);
+    mm_nt<D, I>(dOs, Vs, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < I; ++i) {
+      const int row = q0 + ty * I + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool masked = partial && k0 + tx + 16 * j > row;
         const float pr = masked ? 0.f : expf(s[i][j] - lse[i]);
-        dSs[(ty * 4 + i) * kLP + tx + 16 * j] =
+        dSs[(ty * I + i) * kLP + tx + 16 * j] =
             round_to<T>((dp[i][j] - delta[i]) * pr);
       }
     }
     __syncthreads();
-    mm_nn<D>(dSs, Ks, acc);
+    mm_nn<D, I>(dSs, Ks, acc);
   }
   T* dq = static_cast<T*>(p.out);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + ty * I + i;
     const long long base =
         ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
 #pragma unroll
@@ -441,33 +452,35 @@ __global__ void __launch_bounds__(attn_tc::kThreads)
   attn_tc::dq_block<D>(a, walk, b, h, qt * kTile);
 }
 
-// K5-dKV on fp32 inputs: grid (B * KVH, kv tiles), the first kv tile (the
-// longest causal list) first.  Tiles are transposed against K5-dQ: a
-// thread's patch rows are keys and its columns queries.
+// K5-dKV on fp32 inputs: grid (B * KVH, kv tiles of kOwn<D> rows), the
+// first kv tile (the longest causal list) first.  Tiles are transposed
+// against K5-dQ: a thread's patch rows are keys and its columns queries.
 template <int D>
 __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
   using T = float;
   constexpr int LD = D + 1;
+  constexpr int R = kOwn<D>, I = R / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;     // round(P)^T [key][query]
-  float* dSs = Ps + kTile * kLP;    // round(dS)^T [key][query]
+  float* Ks = smem;                 // [R, D + 1]
+  float* Vs = Ks + R * LD;          // [R, D + 1]
+  float* Qs = Vs + R * LD;          // [64, D + 1]
+  float* dOs = Qs + kTile * LD;     // [64, D + 1]
+  float* Ps = dOs + kTile * LD;     // round(P)^T [key][query], [R, 65]
+  float* dSs = Ps + R * kLP;        // round(dS)^T [key][query], [R, 65]
   const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
   const int g = p.H / p.KVH;
-  const int nkv = gridDim.y;
-  const int kt = blockIdx.y;
-  const int k0 = kt * kTile;
+  const int nkv = p.Skv / kTile;
+  const int k0 = blockIdx.y * R;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_tile<T, D>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
-                  p.k_ss, k0, 1.f);
-  load_tile<T, D>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-                  p.v_ss, k0, 1.f);
-  float acc_k[4][D / 16], acc_v[4][D / 16];
+  load_tile<T, D, R>(Ks,
+                     static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh,
+                     p.k_ss, k0, 1.f);
+  load_tile<T, D, R>(Vs,
+                     static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh,
+                     p.v_ss, k0, 1.f);
+  float acc_k[I][D / 16], acc_v[I][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
   for (int gi = 0; gi < g; ++gi) {
@@ -476,7 +489,8 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
     const T* dout = static_cast<const T*>(p.dout) +
                     (static_cast<long long>(b) * p.Sq * p.H + h) * D;
     const long long vec = (static_cast<long long>(b) * p.H + h) * p.Sq;
-    const int* list = p.ptr + p.head_map[h] * (nkv + 1) + kt;
+    // the list of the 64-row kv tile that holds these rows
+    const int* list = p.ptr + p.head_map[h] * (nkv + 1) + k0 / kTile;
     const int e0 = list[0], e1 = list[1];
     for (int e = e0; e < e1; ++e) {
       const int ent = p.ent[e];
@@ -486,33 +500,33 @@ __global__ void __launch_bounds__(kThreads) splash_bwd_dkv_kernel(Params p) {
       load_tile<T, D>(Qs, q, p.q_ss, q0, p.scale);
       load_tile<T, D>(dOs, dout, static_cast<long long>(p.H) * D, q0, 1.f);
       __syncthreads();
-      float st[4][4], dpt[4][4];
-      mm_nt<D>(Ks, Qs, st);
-      mm_nt<D>(Vs, dOs, dpt);
+      float st[I][4], dpt[I][4];
+      mm_nt<D, I>(Ks, Qs, st);
+      mm_nt<D, I>(Vs, dOs, dpt);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qrow = q0 + tx + 16 * j;
         const float lse = p.lse[vec + qrow];
         const float delta = p.delta[vec + qrow];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool masked = partial && k0 + ty * 4 + i > qrow;
+        for (int i = 0; i < I; ++i) {
+          const bool masked = partial && k0 + ty * I + i > qrow;
           const float pr = masked ? 0.f : expf(st[i][j] - lse);
-          Ps[(ty * 4 + i) * kLP + tx + 16 * j] = round_to<T>(pr);
-          dSs[(ty * 4 + i) * kLP + tx + 16 * j] =
+          Ps[(ty * I + i) * kLP + tx + 16 * j] = round_to<T>(pr);
+          dSs[(ty * I + i) * kLP + tx + 16 * j] =
               round_to<T>((dpt[i][j] - delta) * pr);
         }
       }
       __syncthreads();
-      mm_nn<D>(Ps, dOs, acc_v);
-      mm_nn<D>(dSs, Qs, acc_k);   // q is pre-scaled, so dK is exact
+      mm_nn<D, I>(Ps, dOs, acc_v);
+      mm_nn<D, I>(dSs, Qs, acc_k);   // q is pre-scaled, so dK is exact
     }
   }
   T* dk = static_cast<T*>(p.dk);
   T* dv = static_cast<T*>(p.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < I; ++i) {
+    const int row = k0 + ty * I + i;
     const long long base =
         ((static_cast<long long>(b) * p.Skv + row) * p.KVH + kvh) * D;
 #pragma unroll
@@ -598,12 +612,17 @@ size_t smem_bytes(int kind, int dtype, int d) {
   if (kind == kFwd && dtype == 1) return attn_tc::smem_bytes(d);
   if (kind == kDq && dtype == 1) return attn_tc::dq_smem_bytes(d);
   if (kind == kDkv && dtype == 1) return attn_tc::dkv_smem_bytes(d);
+  // fp32: [64, d + 1] tiles, and in the backward the block's own tiles
+  // and score tiles of own_rows rows (kOwn)
+  const size_t own_rows = d > 128 ? 32 : kTile;
   const size_t tile = static_cast<size_t>(kTile) * (d + 1);
+  const size_t own = own_rows * (d + 1);
   const size_t score = static_cast<size_t>(kTile) * kLP;
+  const size_t own_score = own_rows * kLP;
   switch (kind) {
     case kFwd: return (3 * tile + score) * sizeof(float);
-    case kDq: return (4 * tile + score) * sizeof(float);
-    case kDkv: return (4 * tile + 2 * score) * sizeof(float);
+    case kDq: return (2 * own + 2 * tile + own_score) * sizeof(float);
+    case kDkv: return (2 * own + 2 * tile + 2 * own_score) * sizeof(float);
   }
   return 0;
 }
@@ -642,8 +661,7 @@ cudaError_t run_dkv_tc(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
   constexpr int dtype = std::is_same<T, float>::value ? 0 : 1;
-  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones,
-  // whose backward tiles do not fit a block at head_dim 256
+  // bf16 takes the tensor-core kernels; fp32 keeps the CUDA-core ones
   if constexpr (dtype == 1) {
     if (kind == kFwd) return run_fwd_tc<D>(p, stream);
     if (kind == kDq) return run_dq_tc<D>(p, stream);
@@ -654,18 +672,26 @@ cudaError_t run(int kind, const Params& p, cudaStream_t stream) {
       return attn_tc::launch(splash_fwd_kernel<D>,
                              dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
                              stream, p);
-    if constexpr (D > 128) {
-      return cudaErrorInvalidValue;
-    } else {
-      if (kind == kDq)
-        return attn_tc::launch(splash_bwd_dq_kernel<D>,
-                               dim3(p.B * p.H, p.Sq / kTile), kThreads, smem,
-                               stream, p);
-      return attn_tc::launch(splash_bwd_dkv_kernel<D>,
-                             dim3(p.B * p.KVH, p.Skv / kTile), kThreads,
-                             smem, stream, p);
-    }
+    if (kind == kDq)
+      return attn_tc::launch(splash_bwd_dq_kernel<D>,
+                             dim3(p.B * p.H, p.Sq / kOwn<D>), kThreads, smem,
+                             stream, p);
+    return attn_tc::launch(splash_bwd_dkv_kernel<D>,
+                           dim3(p.B * p.KVH, p.Skv / kOwn<D>), kThreads,
+                           smem, stream, p);
   }
+}
+
+// What the CUDA runtime reports of the fp32 kernel of `kind` (0 K5-fwd,
+// 1 K5-dQ, 2 K5-dKV) at head_dim D, into out[3] (see rt_splash_fwd_usage).
+template <int D>
+int fp32_usage(int kind, int* out) {
+  const size_t smem = smem_bytes(kind, 0, D);
+  if (kind == kFwd)
+    return attn_tc::usage(splash_fwd_kernel<D>, smem, out, kThreads);
+  if (kind == kDq)
+    return attn_tc::usage(splash_bwd_dq_kernel<D>, smem, out, kThreads);
+  return attn_tc::usage(splash_bwd_dkv_kernel<D>, smem, out, kThreads);
 }
 
 // What the CUDA runtime reports of a bf16 kernel at head_dim hd (see
@@ -689,13 +715,21 @@ int tc_usage(int kind, int hd, int* out) {
   return cudaErrorInvalidValue;
 }
 
+int fp32_usage(int kind, int hd, int* out) {
+  if (kind < kFwd || kind > kDkv) return cudaErrorInvalidValue;
+  if (hd == 64) return fp32_usage<64>(kind, out);
+  if (hd == 128) return fp32_usage<128>(kind, out);
+  if (hd == 256) return fp32_usage<256>(kind, out);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one block of `kind` (0 K5-fwd, 1 K5-dQ, 2 K5-dKV)
-// needs for dtype (0 fp32, 1 bf16) at head_dim hd; the wrapper refuses
-// shapes whose need exceeds the card's per-block limit.
+// needs for dtype (0 fp32, 1 bf16) at head_dim hd (every one fits an H100
+// block).
 size_t rt_splash_smem_bytes(int kind, int dtype, int hd) {
   return smem_bytes(kind, dtype, hd);
 }
@@ -711,6 +745,11 @@ int rt_splash_dq_usage(int hd, int* out) { return tc_usage(kDq, hd, out); }
 // The same of K5-dKV's bf16 kernel.
 int rt_splash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 
+// The same of the fp32 kernel of `kind` (0 K5-fwd, 1 K5-dQ, 2 K5-dKV).
+int rt_splash_fp32_usage(int kind, int hd, int* out) {
+  return fp32_usage(kind, hd, out);
+}
+
 // One launch of K5-fwd (kind 0), K5-dQ (kind 1) or K5-dKV (kind 2).  dtype 0
 // is fp32, 1 is bf16, for q, k, v, dout and the outputs alike.  strides
 // holds the (batch, seq, head) strides in elements of q, k and v, in that
@@ -719,7 +758,7 @@ int rt_splash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 // table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
 // the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
 // rounded to the input dtype.  Pointers a kind does not use may be null.
-// head_dim is 64, 128 or 256 (fp32: K5-fwd only at 256).  K5-fwd on bf16
+// head_dim is 64, 128 or 256.  K5-fwd on bf16
 // needs the q, k and v pointers and strides on 16 bytes, K5-dQ and K5-dKV
 // on bf16 those of q, k, v and dout (cudaErrorMisalignedAddress
 // otherwise).  Returns the cudaError_t of the launch.

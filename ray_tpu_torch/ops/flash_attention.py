@@ -23,9 +23,7 @@ Pallas kernels of the JAX package:
     ``csrc/attention_bwd_dkv_tc.cuh``, with the same row rule; fp32
     inputs take the CUDA-core kernel.
 
-The kernels take head_dim 64, 128 and 256, except fp32 K2 and K3 at
-256: their fp32 tiles would need more shared memory than a block may
-have, and the launchers refuse them with a ValueError that says so.
+The kernels take head_dim 64, 128 and 256, in fp32 and in bf16.
 
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward launches K1 and saves (q, k, v, o, lse); the backward computes
@@ -51,8 +49,6 @@ import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
-# per-block shared memory an H100 block may opt into (227 KB)
-_MAX_SMEM = 232448
 _HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
@@ -149,6 +145,8 @@ def _lib():
                    lib.rt_flash_dkv_usage):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
+        lib.rt_flash_fp32_usage.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.rt_flash_fp32_usage.restype = i
         lib._rt_typed = True
     return lib
 
@@ -219,10 +217,6 @@ def _launch(kind: int, q, k, v, causal: bool, scale: float, *, dout=None,
             out=None, dk=None, dv=None, lse=None, delta=None) -> None:
     lib = _lib()
     d = q.shape[-1]
-    smem = lib.rt_flash_smem_bytes(kind, _DTYPES[q.dtype], d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"head_dim {d} needs {smem} B of shared memory per "
-                         f"block; the card allows {_MAX_SMEM}")
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
 

@@ -16,10 +16,15 @@ Two implementations:
     use it, and the card's checks hold the kernel against it.
   - ``paged_attention_cuda`` — the hand-written CUDA kernel
     (``ray_tpu_torch/csrc/paged_attention.cu``), which replaces the
-    Pallas kernel ``_tpu_kernel``: per (row, kv head) it reads only the
-    row's occupied pages, with an online softmax, and splits a row's
-    pages over several thread blocks when the batch alone would leave
-    SMs idle.
+    Pallas kernel ``_tpu_kernel`` and keeps its fp32 arithmetic: per
+    (row, kv head) it reads only the row's occupied positions, in
+    64-position chunks through the table, with bf16 tensor-core products
+    and an online softmax, and splits a row's chunks over several thread
+    blocks when the batch alone would leave SMs idle (the splits merge in
+    the same launch).  ``paged_attention_ref`` on bf16 tensors rounds the
+    softmax probabilities to bf16 before P.V, as ``paged_attention_xla``
+    does; on fp32 copies of the same tensors it computes what the kernel
+    and ``_tpu_kernel`` compute.
 
 ``paged_attention`` dispatches on where the tensors lie: CPU tensors go
 to the plain version, CUDA tensors to the kernel, and a shape the kernel
@@ -30,16 +35,18 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from ray_tpu_torch.ops.attention import dense_attention
 
-# per-block shared memory an H100 block may opt into (227 KB)
-_MAX_SMEM = 232448
 _HEAD_DIMS = (64, 128, 256)
 _MAX_PAGE_SIZE = 128
+# positions per chunk the kernel stages, and query heads per thread block
+CHUNK = 64
+HEADS_PER_BLOCK = 16
 
 
 def paged_attention_ref(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -72,24 +79,67 @@ def _lib():
     if not getattr(lib, "_rt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rt_paged_attention_bf16.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float,
-            p]
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+            ctypes.c_float, p]
         lib.rt_paged_attention_bf16.restype = i
-        lib.rt_paged_attention_smem_bytes.argtypes = [i, i, i]
-        lib.rt_paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.rt_paged_attention_usage.argtypes = [i, ctypes.POINTER(i)]
+        lib.rt_paged_attention_usage.restype = i
         lib._rt_typed = True
     return lib
 
 
-def _splits(dev: torch.device, blocks: int, max_pages: int):
-    """(pages per split, splits): enough blocks for about two waves
-    over the card's SMs, from shapes alone (the lengths stay on the
-    device, and reading them would stall the host).  A split whose pages
-    lie past a row's length does no work."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = min(max_pages, max(1, -(-2 * sms // blocks)))
-    per_split = -(-max_pages // want)
-    return per_split, -(-max_pages // per_split)
+def splits(resident: int, blocks: int, positions: int):
+    """(chunks per split, splits) for ``blocks`` (row, kv head, head
+    group) blocks over a table span of ``positions``, on a card that holds
+    ``resident`` such blocks at once: no split when the blocks already
+    fill it, else about two full residencies if every row were full.  From
+    shapes alone: the lengths stay on the device, and reading them would
+    stall the host.  A split whose chunks lie past a row's length exits at
+    once."""
+    chunks = max(1, -(-positions // CHUNK))
+    want = 1 if blocks >= resident else min(chunks, -(-2 * resident //
+                                                      blocks))
+    per_split = -(-chunks // want)
+    return per_split, -(-chunks // per_split)
+
+
+@functools.cache
+def _resident_blocks(device: int, hd: int) -> int:
+    """Blocks of the kernel at head_dim ``hd`` that card ``device`` holds
+    at once (the CUDA runtime's occupancy, times the SMs)."""
+    u = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = _lib().rt_paged_attention_usage(hd, u)
+    if err != 0:
+        raise RuntimeError(f"paged_attention occupancy query failed: "
+                           f"cudaError_t {err}")
+    return u[2] * torch.cuda.get_device_properties(
+        device).multi_processor_count
+
+
+# (device index, stream) -> the splits' scratch: part_acc, part_ml and the
+# tickets, which every launch leaves at 0.  Launches on one stream run in
+# order, so they can share it; kept rather than made per call, where fresh
+# zeroed tickets would take a launch of their own.
+_scratch: dict = {}
+
+
+def _split_scratch(dev: torch.device, stream: int, parts: int, hd: int,
+                   groups: int):
+    """The scratch of launches on ``stream``, grown to ``parts`` split
+    partials at head_dim ``hd`` and ``groups`` tickets."""
+    key = (dev.index, stream)
+    acc, ml, tickets = _scratch.get(key, (None, None, None))
+    if acc is None or acc.numel() < parts * HEADS_PER_BLOCK * hd:
+        acc = torch.empty(parts * HEADS_PER_BLOCK * hd, dtype=torch.float32,
+                          device=dev)
+    if ml is None or ml.numel() < parts * HEADS_PER_BLOCK * 2:
+        ml = torch.empty(parts * HEADS_PER_BLOCK * 2, dtype=torch.float32,
+                         device=dev)
+    if tickets is None or tickets.numel() < groups:
+        tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+    _scratch[key] = (acc, ml, tickets)
+    return acc, ml, tickets
 
 
 def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -98,9 +148,10 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                          ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (shapes as in
     ``paged_attention_ref``).  Takes bf16 q and pool, head_dim 64, 128 or
-    256, page_size up to 128, any GQA group; int32 tables and lengths; all
-    contiguous on one CUDA device.  Raises on anything else, and when the
-    launch fails.  Every launch adds one to ``paged_attention_cuda.launches``.
+    256, page_size up to 128, any GQA group, a positive scale; int32
+    tables and lengths; all contiguous on one CUDA device, q and the pool
+    on 16 bytes.  Raises on anything else, and when the launch fails.
+    Every launch adds one to ``paged_attention_cuda.launches``.
     """
     dev = q.device
     if dev.type != "cuda":
@@ -140,29 +191,28 @@ def paged_attention_cuda(q: torch.Tensor, kv_pages: torch.Tensor,
                     ("block_tables", block_tables), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = _lib()
-    smem = lib.rt_paged_attention_smem_bytes(heads // kvh, hd, ps)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"GQA group {heads // kvh} x head_dim {hd} x "
-                         f"page_size {ps} needs {smem} B of shared memory "
-                         f"per block; the card allows {_MAX_SMEM}")
+    for name, t in (("q", q), ("kv_pages", kv_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes")
     scale = sm_scale if sm_scale is not None else hd ** -0.5
-    per_split, n_split = _splits(dev, rows * kvh, max_pages)
+    if not scale > 0:
+        raise ValueError(f"sm_scale must be positive, got {scale}")
+    lib = _lib()
+    groups = rows * kvh * -(-(heads // kvh) // HEADS_PER_BLOCK)
+    per_split, n_split = splits(_resident_blocks(dev.index, hd), groups,
+                                max_pages * ps)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        g = heads // kvh
-        part_acc = torch.empty(rows * kvh * n_split * g * hd,
-                               dtype=torch.float32, device=dev)
-        part_ml = torch.empty(rows * kvh * n_split * g * 2,
-                              dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    part_acc = part_ml = tickets = None
+    if n_split > 1:
+        part_acc, part_ml, tickets = (
+            t.data_ptr() for t in _split_scratch(dev, stream,
+                                                 groups * n_split, hd,
+                                                 groups))
     with torch.cuda.device(dev):
         err = lib.rt_paged_attention_bf16(
             q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            None if part_acc is None else part_acc.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_acc, part_ml, tickets,
             rows, heads, kvh, hd, ps, num_pages, max_pages, per_split,
             n_split, scale, stream)
     if err != 0:

@@ -20,9 +20,8 @@ table in three kernels of ``ray_tpu_torch/csrc/splash_attention.cu``:
     bf16 inputs the tensor-core dK/dV it shares with K3
     (``csrc/attention_bwd_dkv_tc.cuh``), with the same row rule.
 
-They take the head_dims of the flash kernels: 64, 128 and 256, except
-fp32 K5-dQ and K5-dKV at 256 (refused: their fp32 tiles do not fit a
-block's shared memory).
+They take the head_dims of the flash kernels: 64, 128 and 256, in fp32
+and in bf16.
 
 Semantics kept from the JAX side:
 
@@ -58,7 +57,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ray_tpu_torch.ops.flash_attention import _DTYPES, _MAX_SMEM
+from ray_tpu_torch.ops.flash_attention import _DTYPES
 from ray_tpu_torch.ops.flash_attention import _check as _check_flash
 from ray_tpu_torch.ops.flash_attention import (_expand, _fold,
                                                check_rows_aligned)
@@ -327,6 +326,8 @@ def _lib():
                    lib.rt_splash_dkv_usage):
             fn.argtypes = [i, ctypes.POINTER(i)]
             fn.restype = i
+        lib.rt_splash_fp32_usage.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.rt_splash_fp32_usage.restype = i
         lib._rt_typed = True
     return lib
 
@@ -351,10 +352,6 @@ def _launch(kind: int, q, k, v, mask: MultiHeadMask, scale: float, *,
             delta=None) -> None:
     lib = _lib()
     d = q.shape[-1]
-    smem = lib.rt_splash_smem_bytes(kind, _DTYPES[q.dtype], d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"head_dim {d} needs {smem} B of shared memory per "
-                         f"block; the card allows {_MAX_SMEM}")
     head_map, row_ptr, row_ent, col_ptr, col_ent = _device_table(
         mask, q.device)
     ptr, ent = (col_ptr, col_ent) if kind == _DKV else (row_ptr, row_ent)
