@@ -24,6 +24,18 @@ package.  Phases, one JSON line each:
               against the plain version on the engine's own pool, and
               a teacher-forced check of the greedy tokens against the
               model's dense prefill path.
+     dense_slice  the same model and requests on the dense slot-mode
+              engine (the reference's default): two requests stream
+              and must yield their results' tokens, every greedy
+              request passes the teacher-forced check, the paged
+              kernel is never launched; Generator.generate on four of
+              the prompts and its agreement with the engine; decode
+              tokens/s, TTFT, decode step ms beside the paged slice's.
+     prefix_handoff  the same model on the paged engine: 8 requests
+              sharing a 256-token prefix hit the prompt-prefix cache
+              (teacher-forced, TTFT with the cache and without), and 4
+              prefill handoffs exported by one engine decode on a
+              second as a colocated submit does (tokens equal).
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
               (16 x 1024, 12 heads of 64, causal, bf16) and at gptj-6b's
@@ -60,6 +72,13 @@ package.  Phases, one JSON line each:
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
+     lean_train  bench.py's memory-lean run: gpt-large (36 layers,
+              1.07 B parameters) at full width and depth, remat
+              "nothing", the chunked CE head over parameters cast to
+              bf16 once per step, Adafactor, batch 10 x 1024: the train
+              phase's gates, 72 / 36 / 36 kernel launches per step, the
+              optimizer state within 1 KB of JAX's bytes; then 3 steps
+              without the hoisted cast.
   8. gptj     gptj-6b (16 heads of 256) at full width, depth cut to 2:
               the train runs of phases 6 and 7 at batch 2 x 1024 for 3
               steps each, and the engine of phase 3 serving 4 requests.
@@ -183,6 +202,11 @@ TRAIN_STEPS = 20
 # and the phase short
 GPTJ_LAYERS = 2
 GPTJ_STEPS = 3
+# The Adafactor state of bench.py's memory-lean gpt-large run, as JAX
+# counts it (jax.eval_shape of OptimizerConfig(optimizer="adafactor")
+# .make().init over gpt-large's parameter tree; a few bytes of it are
+# optax placeholders); tests/test_torch_train.py pins the same number
+ADAFACTOR_STATE_BYTES = 711_708_752
 
 
 def emit(obj) -> None:
@@ -599,66 +623,133 @@ def decode_step(engine) -> tuple:
     return start.elapsed_time(end) / k_steps, groups
 
 
-def slice_phase(dev, name: str = "llama3-8b", n_layers=None,
-                n_requests: int = 16, new: tuple = (32, 64),
-                num_slots: int = 8) -> tuple:
-    """The paged LLMEngine serving ``name`` (depth cut to ``n_layers``
-    where given) at full width with random bf16 weights: n_requests
-    requests from threads, checked as the module docstring says."""
+def make_model(dev, name: str, n_layers=None) -> tuple:
+    """``name`` at full width (depth cut to ``n_layers`` where given) in
+    bf16 with random weights from the seed: (model, seconds taken)."""
     import torch
     from ray_tpu_torch.models.configs import get_config
     from ray_tpu_torch.models.convert import init_weights
     from ray_tpu_torch.models.gpt import GPT
-    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
-    from ray_tpu_torch.serve.llm_engine import LLMEngine
-
     cfg = get_config(name, **({} if n_layers is None
                               else dict(n_layers=n_layers)))
     t0 = time.perf_counter()
     model = GPT(cfg, device=dev, dtype=torch.bfloat16)
     init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    engine = LLMEngine(cfg, model, num_slots=num_slots, page_size=64,
-                       max_seq_len=1024, block_size=16, top_k=50,
-                       seed=SEED, device=dev)
+    return model, time.perf_counter() - t0
+
+
+def serve(engine, reqs, streamed=()) -> tuple:
+    """Submit ``reqs`` at once, each from its own thread; those at the
+    indices ``streamed`` go through ``engine.stream`` on one event-loop
+    thread instead.  (results, {index: streamed tokens}, wall seconds)."""
+    import asyncio
+    results = [None] * len(reqs)
+    tokens = {}
+
+    def go(i):
+        r = reqs[i]
+        results[i] = engine.submit(
+            r["prompt"], max_new_tokens=r["max_new_tokens"],
+            temperature=r["temperature"])
+
+    async def streams():
+        async def one(i):
+            r = reqs[i]
+            items = [x async for x in engine.stream(
+                r["prompt"], max_new_tokens=r["max_new_tokens"],
+                temperature=r["temperature"])]
+            tokens[i], results[i] = items[:-1], items[-1]
+        await asyncio.gather(*(one(i) for i in streamed))
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(reqs)) if i not in streamed]
+    if streamed:
+        threads.append(threading.Thread(target=asyncio.run,
+                                        args=(streams(),)))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "requests hung")
+    return results, tokens, wall
+
+
+def one_wave(engine, call, args_list) -> list:
+    """``call(*args)`` for each of ``args_list`` while the engine's loop
+    waits on its lock, so that one loop iteration takes them all; the
+    results, in order."""
+    import asyncio
+
+    async def go():
+        with engine._lock:
+            futs = [call(*a) for a in args_list]
+        return await asyncio.wait_for(asyncio.gather(*futs), 600)
+    return asyncio.run(go())
+
+
+def check_results(reqs, results, vocab: int) -> None:
+    """Every request returned all its tokens, by length, in range."""
+    for i, (r, res) in enumerate(zip(reqs, results)):
+        check(res is not None, f"request {i} returned nothing")
+        check(len(res.tokens) == r["max_new_tokens"],
+              f"request {i}: {len(res.tokens)} tokens, wanted "
+              f"{r['max_new_tokens']}")
+        check(res.finish_reason == "length",
+              f"request {i} finished by {res.finish_reason}")
+        check(res.prompt_len == len(r["prompt"]),
+              f"request {i} prompt_len {res.prompt_len}")
+        check(all(0 <= t < vocab for t in res.tokens),
+              f"request {i} token out of range")
+
+
+def check_forced(forced) -> None:
+    for f in forced:
+        check(f["max_gap"] <= GAP_TOL and f["agree"] >= AGREE,
+              f"greedy tokens disagree with the dense prefill path: {f}")
+
+
+def serving_metrics(engine, results, wall: float, num_slots: int) -> dict:
+    ttfts = sorted(r.time_to_first_token_s for r in results)
+    return {"wall_s": wall, "decode_steps": engine.stats.steps,
+            "decode_tokens": engine.stats.step_tokens,
+            "tokens_generated": engine.stats.tokens_generated,
+            "decode_tok_s": engine.stats.step_tokens / wall,
+            "tok_s": engine.stats.tokens_generated / wall,
+            "ttft_p50_s": statistics.median(ttfts),
+            "ttft_max_s": ttfts[-1],
+            "latency_p50_s": statistics.median(r.latency_s
+                                               for r in results),
+            "batch_occupancy": engine.stats.occupancy(num_slots)}
+
+
+def slice_phase(dev, model, name: str = "llama3-8b",
+                n_requests: int = 16, new: tuple = (32, 64),
+                num_slots: int = 8) -> tuple:
+    """The paged LLMEngine serving ``model`` (``name`` at full width,
+    random bf16 weights): n_requests requests from threads, checked as
+    the module docstring says."""
+    import torch
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    cfg = model.cfg
+    engine = LLMEngine(cfg, model, paged=True, num_slots=num_slots,
+                       page_size=64, max_seq_len=1024, block_size=16,
+                       top_k=50, seed=SEED, device=dev)
     try:
         reqs = make_requests(cfg.vocab_size, n_requests, new)
         t0 = time.perf_counter()
         engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
         warm_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
-        results = [None] * len(reqs)
-
-        def go(i):
-            r = reqs[i]
-            results[i] = engine.submit(
-                r["prompt"], max_new_tokens=r["max_new_tokens"],
-                temperature=r["temperature"])
-
-        threads = [threading.Thread(target=go, args=(i,))
-                   for i in range(len(reqs))]
         paged_attention_cuda.launches = 0
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
+        results, _, wall = serve(engine, reqs)
         launches = paged_attention_cuda.launches
         steps = engine.stats.steps
-        check(not any(t.is_alive() for t in threads), "requests hung")
-        for i, (r, res) in enumerate(zip(reqs, results)):
-            check(res is not None, f"request {i} returned nothing")
-            check(len(res.tokens) == r["max_new_tokens"],
-                  f"request {i}: {len(res.tokens)} tokens, wanted "
-                  f"{r['max_new_tokens']}")
-            check(res.finish_reason == "length",
-                  f"request {i} finished by {res.finish_reason}")
-            check(res.prompt_len == len(r["prompt"]),
-                  f"request {i} prompt_len {res.prompt_len}")
-            check(all(0 <= t < cfg.vocab_size for t in res.tokens),
-                  f"request {i} token out of range")
+        check_results(reqs, results, cfg.vocab_size)
         check(launches == cfg.n_layers * steps,
               f"kernel launches {launches} != n_layers {cfg.n_layers} x "
               f"decode steps {steps}")
@@ -668,7 +759,7 @@ def slice_phase(dev, name: str = "llama3-8b", n_layers=None,
         # the kernel against the plain version on the engine's own pool,
         # tables and lengths (those of the last decode block)
         layer = cfg.n_layers // 2
-        pool = engine._pools[layer]
+        pool = engine._cache[layer]
         tables = engine._tables.clone()
         lengths = engine._positions.clamp(min=1).to(torch.int32)
         q = torch.randn(engine._rows, cfg.n_heads, cfg.head_dim,
@@ -685,7 +776,6 @@ def slice_phase(dev, name: str = "llama3-8b", n_layers=None,
     finally:
         engine.close()
 
-    ttfts = sorted(r.time_to_first_token_s for r in results)
     out = {
         "phase": "slice", "model": name, "params": cfg.num_params(),
         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -694,24 +784,213 @@ def slice_phase(dev, name: str = "llama3-8b", n_layers=None,
         "vocab": cfg.vocab_size, "num_slots": num_slots, "page_size": 64,
         "max_seq_len": 1024, "block_size": 16,
         "kv_pool_pages": engine.kv_pool_pages,
-        "requests": len(reqs), "wall_s": wall,
-        "decode_steps": steps, "kernel_launches": launches,
-        "decode_tokens": engine.stats.step_tokens,
-        "tokens_generated": engine.stats.tokens_generated,
-        "decode_tok_s": engine.stats.step_tokens / wall,
-        "tok_s": engine.stats.tokens_generated / wall,
-        "ttft_p50_s": statistics.median(ttfts), "ttft_max_s": ttfts[-1],
-        "latency_p50_s": statistics.median(r.latency_s for r in results),
+        "requests": len(reqs), "kernel_launches": launches,
+        **serving_metrics(engine, results, wall, num_slots),
         "decode_step_ms": step_ms, "decode_step_device_ms": step_device,
         "device_busy_share": sum(step_device.values()) / step_ms,
-        "batch_occupancy": engine.stats.occupancy(num_slots),
-        "peak_mem_gb": peak_gb, "init_s": init_s, "warmup_s": warm_s,
+        "peak_mem_gb": peak_gb, "warmup_s": warm_s,
         "real_pool_check": real, "teacher_forced": forced,
     }
-    for f in forced:
-        check(f["max_gap"] <= GAP_TOL and f["agree"] >= AGREE,
-              f"greedy tokens disagree with the dense prefill path: {f}")
+    check_forced(forced)
     return out, launches, real["max_abs_err"]
+
+
+def dense_slice_phase(dev, model, paged: dict,
+                      name: str = "llama3-8b") -> dict:
+    """The dense slot-mode LLMEngine (the reference's default) serving
+    ``model`` with the slice phase's settings and requests: requests 2
+    and 3 stream, and their tokens must equal their results'; every
+    greedy request passes the teacher-forced check; the paged kernel is
+    never launched.  Then Generator.generate, greedy, on four of the
+    prompts one at a time: its tokens pass the teacher-forced check, and
+    their agreement with the engine's is reported.
+    ``paged``: the slice phase's output, reported beside."""
+    import torch
+    from ray_tpu_torch.models.generate import Generator
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    cfg = model.cfg
+    num_slots = 8
+    engine = LLMEngine(cfg, model, num_slots=num_slots, max_seq_len=1024,
+                       block_size=16, top_k=50, seed=SEED, device=dev)
+    check(not engine.paged, "the engine's default is not the dense mode")
+    try:
+        reqs = make_requests(cfg.vocab_size)
+        t0 = time.perf_counter()
+        engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        paged_attention_cuda.launches = 0
+        results, streamed, wall = serve(engine, reqs, streamed=(2, 3))
+        launches = paged_attention_cuda.launches
+        check_results(reqs, results, cfg.vocab_size)
+        check(launches == 0, f"dense mode launched the paged kernel "
+                             f"{launches} times")
+        for i, toks in streamed.items():
+            check(toks == results[i].tokens,
+                  f"request {i} streamed {toks}, its result holds "
+                  f"{results[i].tokens}")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0]
+        forced = [teacher_forced(engine, reqs[i]["prompt"],
+                                 results[i].tokens) for i in greedy]
+        gen = Generator(engine.cfg, engine.model)
+        agreement = []
+        t0 = time.perf_counter()
+        for i in greedy[:4]:
+            r = reqs[i]
+            got = gen.generate([r["prompt"]],
+                               max_new_tokens=r["max_new_tokens"],
+                               temperature=0.0)[0].tolist()
+            want = results[i].tokens
+            first = next((j for j, (a, b) in enumerate(zip(got, want))
+                          if a != b), None)
+            agreement.append({"request": i, "first_divergence": first,
+                              "agree": sum(a == b for a, b in
+                                           zip(got, want)) / len(want),
+                              "teacher_forced": teacher_forced(
+                                  engine, r["prompt"], got)})
+        generator_s = time.perf_counter() - t0
+        # near-ties of random weights flip under bf16 rounding, after
+        # which the two continuations part; each must still be greedy
+        check_forced([a["teacher_forced"] for a in agreement])
+        step_ms, step_device = decode_step(engine)
+    finally:
+        engine.close()
+    out = {"model": name, "params": cfg.num_params(),
+           "n_layers": cfg.n_layers, "num_slots": num_slots,
+           "max_seq_len": 1024, "block_size": 16,
+           "dense_cache_bytes": sum(c.numel() * c.element_size()
+                                    for c in engine._cache),
+           "requests": len(reqs), "streamed": sorted(streamed),
+           "paged_kernel_launches": launches,
+           **serving_metrics(engine, results, wall, num_slots),
+           "decode_step_ms": step_ms, "decode_step_device_ms": step_device,
+           "device_busy_share": sum(step_device.values()) / step_ms,
+           "peak_mem_gb": peak_gb, "warmup_s": warm_s,
+           "teacher_forced": forced,
+           "generator_agreement": agreement, "generator_s": generator_s,
+           "paged": {k: paged[k] for k in (
+               "decode_tok_s", "ttft_p50_s", "decode_step_ms",
+               "decode_step_device_ms", "peak_mem_gb")}}
+    check_forced(forced)
+    return out
+
+
+def prefix_handoff_phase(dev, model) -> dict:
+    """The paged engine's prompt-prefix cache and prefill handoffs on
+    ``model``.  Prefix: one request seeds the cache, then 8 requests
+    sharing its 256-token prefix (4 pages of 64) with suffixes of 17-100
+    tokens must all hit it and pass the teacher-forced check; the same
+    requests on an engine without the cache give the TTFT beside.
+    Handoff: 4 prompts exported by one engine and imported by a second
+    on the same weights must decode the greedy tokens of a colocated
+    submit on the first."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    cfg = model.cfg
+    kw = dict(paged=True, num_slots=8, page_size=64, max_seq_len=1024,
+              block_size=16, top_k=50, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    suffixes = [int(n) for n in rng.integers(17, 101, 9)]
+    reqs = [dict(prompt=prefix + rng.integers(0, cfg.vocab_size, n
+                                                ).tolist(),
+                 max_new_tokens=32, temperature=0.0) for n in suffixes]
+    out = {"prefix_tokens": 256, "suffix_tokens": suffixes[1:]}
+    for label, pages in (("with_cache", 64), ("without_cache", 0)):
+        engine = LLMEngine(cfg, model, prefix_cache_pages=pages, **kw)
+        try:
+            engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs]
+                          + suffixes)
+            engine.submit(reqs[0]["prompt"], max_new_tokens=32)
+            # the seed's last block was dispatched (and counted) before
+            # its result came back, and nothing runs after it
+            st = engine.stats
+            steps0 = st.steps
+            paged_attention_cuda.launches = 0
+            results, _, wall = serve(engine, reqs[1:])
+            launches = paged_attention_cuda.launches
+            check_results(reqs[1:], results, cfg.vocab_size)
+            check(launches == cfg.n_layers * (st.steps - steps0),
+                  f"{label}: paged kernel launches {launches} != "
+                  f"n_layers x decode steps {st.steps - steps0}")
+            res = {"prefix_cache_pages": engine.prefix_cache_pages,
+                   "prefix_hits": st.prefix_hits,
+                   "prefix_misses": st.prefix_misses,
+                   "prefix_tokens_saved": st.prefix_tokens_saved,
+                   "prefilled_tokens": sum(len(r["prompt"]) for r in reqs)
+                   - st.prefix_tokens_saved,
+                   "paged_kernel_launches": launches,
+                   "tokens": [r.tokens for r in results],
+                   **serving_metrics(engine, results, wall, 8)}
+            if pages:
+                check(st.prefix_hits == 8 and st.prefix_tokens_saved
+                      == 8 * 256, f"prefix hits {st.prefix_hits}, tokens "
+                      f"saved {st.prefix_tokens_saved}: wanted 8 and 2048")
+                res["teacher_forced"] = [
+                    teacher_forced(engine, r["prompt"], res_.tokens)
+                    for r, res_ in zip(reqs[1:], results)]
+                check_forced(res["teacher_forced"])
+        finally:
+            engine.close()
+        out[label] = res
+    a, b = out["with_cache"].pop("tokens"), out["without_cache"].pop(
+        "tokens")
+    out["agree_with_and_without_cache"] = float(np.mean(
+        [x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb)]))
+
+    # handoffs: 4 prompts of 100-300 tokens, greedy, 32 new tokens
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(100, 301, 4)]
+    exporter = LLMEngine(cfg, model, **kw)
+    importer = LLMEngine(cfg, model, **kw)
+    admit_ms = []
+    importer.on_import_admit = admit_ms.append
+    try:
+        for eng in (exporter, importer):
+            eng.warmup(prompt_lens=[len(p) for p in prompts])
+        paged_attention_cuda.launches = 0
+        colocated = one_wave(exporter, lambda p: exporter.submit(
+            p, max_new_tokens=32), [(p,) for p in prompts])
+        colocated_launches = paged_attention_cuda.launches
+        t0 = time.perf_counter()
+        handoffs = one_wave(exporter, lambda p: exporter.export_prefill(
+            p, max_new_tokens=32), [(p,) for p in prompts])
+        export_s = time.perf_counter() - t0
+        paged_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        imported = one_wave(importer, importer.import_prefill,
+                            [(h,) for h in handoffs])
+        import_s = time.perf_counter() - t0
+        import_launches = paged_attention_cuda.launches
+        check(import_launches == cfg.n_layers * importer.stats.steps,
+              f"import: paged kernel launches {import_launches} != "
+              f"n_layers x decode steps {importer.stats.steps}")
+        for i, (got, want) in enumerate(zip(imported, colocated)):
+            check(got.tokens == want.tokens,
+                  f"handoff {i} decoded {got.tokens[:8]}..., the colocated "
+                  f"submit {want.tokens[:8]}...")
+    finally:
+        exporter.close()
+        importer.close()
+    out["handoff"] = {
+        "prompt_tokens": [len(p) for p in prompts],
+        "npages": [h.npages for h in handoffs],
+        "bytes": [h.nbytes for h in handoffs],
+        "kv_shape": list(handoffs[0].kv.shape),
+        "export_ms_per_request": [h.export_ms for h in handoffs],
+        "import_admit_ms_per_request": admit_ms,
+        "export_wall_s": export_s, "import_wall_s": import_s,
+        "colocated_paged_kernel_launches": colocated_launches,
+        "import_paged_kernel_launches": import_launches,
+        "import_decode_steps": importer.stats.steps,
+        "tokens_equal_colocated": True}
+    return out
 
 
 def attn_bound(kind: str, q, k, causal: bool) -> dict:
@@ -1050,11 +1329,13 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
                    h: int = 4, d: int = 256) -> dict:
     """fp32 at head_dim 256, causal: the CUDA-core forward, dQ and dK/dV
     kernels (whose backward blocks own 32-row tiles there) against their
-    plain versions at FLASH_FP32_TOL; each kernel's time beside its bound,
-    and its registers, local memory, blocks per SM and shared memory per
-    block."""
+    plain versions at FLASH_FP32_TOL; each kernel's time beside its
+    bound, its plain version's and SDPA's (forward, or backward for the
+    two backward kernels), and its registers, local memory, blocks per SM
+    and shared memory per block."""
     import ctypes
     import torch
+    import torch.nn.functional as F
     from ray_tpu_torch.ops import flash_attention, splash
     scale = d ** -0.5
     fwd, dq_k, dkv_k, ref_fwd, ref_dq, ref_dkv = kernel_fns(
@@ -1085,11 +1366,27 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
         res[kind]["max_abs_err"] = max(c["max_abs_err"]
                                        for c in res[kind].values())
     lib = (flash_attention if family == "flash" else splash)._lib()
-    for i, (kind, fn, args) in enumerate((
-            (kinds[0], fwd, (q, k, v)),
-            (kinds[1], dq_k, (q, k, v, do, lse, delta)),
-            (kinds[2], dkv_k, (q, k, v, do, lse, delta)))):
+    # the library yardstick: SDPA on contiguous [B, H, S, D] fp32 copies,
+    # its backward computing dq, dk and dv together
+    lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=True, scale=scale), [(lq, lk, lv)])[0]
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                          scale=scale)
+    ldo = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lout, (lq, lk, lv), ldo, retain_graph=True), [()])[0]
+    for i, (kind, fn, args, ref, ref_args, lib_ms) in enumerate((
+            (kinds[0], fwd, (q, k, v), ref_fwd, (q, k, v), lib_fwd),
+            (kinds[1], dq_k, (q, k, v, do, lse, delta), ref_dq,
+             (q, k, v, o, lse, do), lib_bwd),
+            (kinds[2], dkv_k, (q, k, v, do, lse, delta), ref_dkv,
+             (q, k, v, o, lse, do), lib_bwd))):
         ms = time_ms(fn, [args])[0]
+        res[kind].update(plain_ms=time_ms(ref, [ref_args], reps=2)[0],
+                         library_ms=lib_ms)
         bound = attn_bound(kind, q, k, True)
         u = (ctypes.c_int * 3)()
         err = getattr(lib, f"rt_{family}_fp32_usage")(i, d, u)
@@ -1165,14 +1462,64 @@ def splash_phase(dev) -> dict:
             "tc_kernel": tc_usage("splash")}
 
 
+def step_groups(prof, impl: str) -> tuple:
+    """Device ms of one profiled step by group (the attention kernels of
+    ``impl``, cuBLAS GEMMs, the optimizer, the rest), the attention
+    kernels' (ms, launches) each, and the top kernels.  Kernels are
+    grouped by name; the optimizer's time is that of the kernels its
+    profiler range (``train/step.py``) launched, on the CPU side of the
+    trace."""
+    from torch.autograd import DeviceType
+    attention = {n: [0.0, 0] for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    by_name = {impl: 0.0, "gemm": 0.0, "rest": 0.0}
+    optimizer = 0.0
+    kernels: dict = {}
+    for e in prof.events():
+        if e.name == "optimizer":
+            if e.device_type == DeviceType.CPU:
+                optimizer += e.device_time_total / 1e3
+            continue
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key, ms = e.name.lower(), e.device_time_total / 1e3
+        k = kernels.setdefault(e.name[:80], [0.0, 0])
+        k[0] += ms
+        k[1] += 1
+        for n, a in attention.items():
+            if f"{impl}_{n}" in key:
+                a[0] += ms
+                a[1] += 1
+        if f"{impl}_" in key:
+            by_name[impl] += ms
+        elif "nvjet" in key or "gemm" in key or "splitk" in key \
+                or "cutlass" in key:
+            by_name["gemm"] += ms
+        else:
+            by_name["rest"] += ms
+    top = sorted(((n, ms, c) for n, (ms, c) in kernels.items()),
+                 key=lambda t: -t[1])[:15]
+    groups = {impl: by_name[impl], "gemm": by_name["gemm"],
+              "optimizer": optimizer,
+              # the optimizer launches no GEMM or attention kernel
+              "other": by_name["rest"] - optimizer}
+    return groups, attention, top
+
+
 def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
                 name: str = "gpt-small", batch: int = 16, seq: int = 1024,
-                steps: int = TRAIN_STEPS, n_layers=None) -> dict:
-    """bench.py's headline run on the port with ``attention_impl=impl``:
+                steps: int = TRAIN_STEPS, n_layers=None, warmup: int = 0,
+                optimizer: str = "adamw", remat_policy: str = "dots",
+                chunked: bool = False, param_cast=None,
+                nocast_steps: int = 0) -> dict:
+    """bench.py's training runs on the port with ``attention_impl=impl``:
     make_train over GPT at full width and depth (depth cut to
-    ``n_layers`` where given), the dense lm_loss_fn head, one fixed
-    batch.  Its first step must agree with one step of ``ref_impl`` from
-    the same weights and batch."""
+    ``n_layers`` where given), one fixed batch, the dense lm_loss_fn
+    head or (``chunked``) lm_loss_chunked_fn with ``param_cast``.  Its
+    first step must agree with one step of ``ref_impl`` from the same
+    weights and batch; ``warmup`` more untimed steps, then ``steps``
+    timed ones, one profiled, and ``nocast_steps`` timed ones with the
+    chunked head's cast left inside the projections."""
+    import functools
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1180,13 +1527,22 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     from ray_tpu_torch.models.convert import init_weights
     from ray_tpu_torch.models.gpt import GPT
     from ray_tpu_torch.ops import flash_attention, splash
-    from ray_tpu_torch.train.step import OptimizerConfig, make_train
+    from ray_tpu_torch.train.step import (OptimizerConfig,
+                                          lm_loss_chunked_fn, lm_loss_fn,
+                                          make_train, state_nbytes)
 
-    over = dict(max_seq_len=seq, remat=True)
+    over = dict(max_seq_len=seq, remat=True, remat_policy=remat_policy)
     if n_layers is not None:
         over["n_layers"] = n_layers
     cfg = get_config(name, attention_impl=impl, **over)
-    opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
+    opt = OptimizerConfig(warmup_steps=10, decay_steps=1000,
+                          optimizer=optimizer)
+
+    def loss_fn(cast):
+        if not chunked:
+            return lm_loss_fn
+        return functools.partial(lm_loss_chunked_fn, param_cast=cast)
+
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, seq + 1))).to(dev)
@@ -1197,14 +1553,15 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     # one step of the reference attention from the same weights
     ref = GPT(get_config(name, attention_impl=ref_impl, **over), device=dev)
     ref.load_state_dict(model.state_dict())
-    init_r, step_r = make_train(ref, opt)
+    init_r, step_r = make_train(ref, opt, loss_fn(param_cast))
     _, mr = step_r(init_r(), data)
     ref_m = {k: float(v) for k, v in mr.items()}
     del ref, init_r, step_r, mr
     torch.cuda.empty_cache()
 
-    init_fn, step_fn = make_train(model, opt)
+    init_fn, step_fn = make_train(model, opt, loss_fn(param_cast))
     state = init_fn()
+    opt_bytes = state_nbytes(state.opt_state)
     state, m1 = step_fn(state, data)
     first = {k: float(v) for k, v in m1.items()}
     parity = {"reference": ref_impl, ref_impl: ref_m, impl: first,
@@ -1215,6 +1572,8 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     check(parity["loss_rel"] <= LOSS_RTOL
           and parity["grad_norm_rel"] <= GRAD_NORM_RTOL,
           f"the {impl} step disagrees with the {ref_impl} step: {parity}")
+    for _ in range(warmup):
+        state, _ = step_fn(state, data)
 
     # every attention kernel's counter: those of the other family must
     # stay at 0 through the run
@@ -1251,50 +1610,87 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
 
     # device time of one step by kernel group
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         state, _ = step_fn(state, data)
         torch.cuda.synchronize()
-    groups = {impl: 0.0, "gemm": 0.0, "optimizer": 0.0, "other": 0.0}
-    # the attention group by kernel: ms and launches in the step
-    attention = {n: [0.0, 0] for n in ("fwd", "bwd_dq", "bwd_dkv")}
-    events = sorted(prof.key_averages(),
-                    key=lambda e: -e.self_device_time_total)
-    top = [(e.key[:80], e.self_device_time_total / 1e3, e.count)
-           for e in events[:15]]
-    for e in events:
-        key = e.key.lower()
-        for n, a in attention.items():
-            if f"{impl}_{n}" in key:
-                a[0] += e.self_device_time_total / 1e3
-                a[1] += e.count
-        if f"{impl}_" in key:
-            group = impl
-        elif "nvjet" in key or "gemm" in key or "splitk" in key \
-                or "cutlass" in key:
-            group = "gemm"
-        elif "multi_tensor" in key or "foreach" in key:
-            group = "optimizer"
-        else:
-            group = "other"
-        groups[group] += e.self_device_time_total / 1e3
+    groups, attention, top = step_groups(prof, impl)
 
     step_s = wall / steps
     tokens_s = batch * seq / step_s
     flops_per_token = 6 * cfg.num_params() + 12 * L * cfg.d_model * seq
-    return {"model": name, "attention_impl": impl,
-            "params": cfg.num_params(), "n_layers": L,
-            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-            "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
-            "remat_policy": cfg.remat_policy, "steps": steps,
-            "parity": parity, "losses": losses, "grad_norms": grad_norms,
-            "launches": launches, "expected_launches": expected,
-            "step_ms": step_s * 1e3, "tokens_s": tokens_s,
-            "flops_per_token": flops_per_token,
-            "mfu": flops_per_token * tokens_s / BF16_FLOPS,
-            "peak_mem_gb": peak_gb, "step_device_ms": groups,
-            "attention_device_ms_calls": attention,
-            "top_kernels_ms_calls": top,
-            "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
+    out = {"model": name, "attention_impl": impl,
+           "params": cfg.num_params(), "n_layers": L,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
+           "remat_policy": cfg.remat_policy, "optimizer": optimizer,
+           "loss_head": "chunked" if chunked else "dense",
+           "param_cast": str(param_cast), "warmup_steps": 1 + warmup,
+           "steps": steps, "optimizer_state_bytes": opt_bytes,
+           "parity": parity, "losses": losses, "grad_norms": grad_norms,
+           "launches": launches, "expected_launches": expected,
+           "step_ms": step_s * 1e3, "tokens_s": tokens_s,
+           "flops_per_token": flops_per_token,
+           "mfu": flops_per_token * tokens_s / BF16_FLOPS,
+           "peak_mem_gb": peak_gb, "step_device_ms": groups,
+           "attention_device_ms_calls": attention,
+           "top_kernels_ms_calls": top,
+           "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
+    if nocast_steps:
+        _, step_nocast = make_train(model, opt, loss_fn(None))
+        state, _ = step_nocast(state, data)      # untimed first call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(nocast_steps):
+            state, m = step_nocast(state, data)
+        check(math.isfinite(float(m["loss"])),
+              f"non-finite loss without the hoisted cast: {m}")
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step_nocast(state, data)
+            torch.cuda.synchronize()
+        out["without_param_cast"] = {
+            "steps": nocast_steps, "step_ms": wall / nocast_steps * 1e3,
+            "tokens_s": batch * seq * nocast_steps / wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "step_device_ms": step_groups(prof, impl)[0]}
+    return out
+
+
+def lean_train_phase(dev) -> dict:
+    """bench.py's memory-lean run (gpt-large, 36 layers, 1.07 B
+    parameters, at full width and depth): remat "nothing", the chunked
+    CE head over a bf16 copy of the parameters cast once per step,
+    Adafactor (warmup 10 / decay 1000), batch 10 x 1024; 3 warmup steps
+    (the first held against the plain attention), 10 timed, then 3
+    without the hoisted cast.  72 K1, 36 K2 and 36 K3 launches per step;
+    the optimizer state within 1 KB of JAX's count for the same run
+    (ADAFACTOR_STATE_BYTES); each kernel's device ms per launch at this
+    shape beside its bound."""
+    import torch
+    res = train_phase(dev, name="gpt-large", batch=10, seq=1024, steps=10,
+                      warmup=2, optimizer="adafactor",
+                      remat_policy="nothing", chunked=True,
+                      param_cast=torch.bfloat16, nocast_steps=3)
+    got = res["optimizer_state_bytes"]
+    check(abs(got - ADAFACTOR_STATE_BYTES) <= 1024,
+          f"Adafactor state {got} B, JAX's {ADAFACTOR_STATE_BYTES} B: the "
+          "statistics are not grouped as the JAX tree's leaves")
+    per_step = {k: v // res["steps"] for k, v in res["launches"].items()}
+    check(per_step["flash_fwd"] == 72 and per_step["flash_bwd_dq"] == 36
+          and per_step["flash_bwd_dkv"] == 36,
+          f"launches per step {per_step}, wanted 72 / 36 / 36")
+    q = torch.empty(10, 1024, 20, 64, dtype=torch.bfloat16, device=dev)
+    res["kernels_at_shape"] = {}
+    for n, (ms, calls) in res["attention_device_ms_calls"].items():
+        res["kernels_at_shape"][f"flash_{n}"] = {
+            "shape": [10, 1024, 20, 64], "launches_per_step": calls,
+            "ms": ms / calls if calls else None,
+            **attn_bound(f"flash_{n}", q, q, True)}
+    res["launches_per_step"] = per_step
+    return res
 
 
 def gptj_phase(dev) -> dict:
@@ -1312,9 +1708,9 @@ def gptj_phase(dev) -> dict:
                                 batch=2, seq=1024, steps=GPTJ_STEPS,
                                 n_layers=GPTJ_LAYERS)
         torch.cuda.empty_cache()
-    out["serve"], _, _ = slice_phase(dev, "gptj-6b", n_layers=GPTJ_LAYERS,
-                                     n_requests=4, new=(16, 32),
-                                     num_slots=4)
+    model, _ = make_model(dev, "gptj-6b", n_layers=GPTJ_LAYERS)
+    out["serve"], _, _ = slice_phase(dev, model, "gptj-6b", n_requests=4,
+                                     new=(16, 32), num_slots=4)
     return out
 
 
@@ -1399,8 +1795,19 @@ def main() -> int:
     kern = kernel_phase(dev)
     emit({"phase": "kernel", "name": "paged_attention", **kern})
 
-    sl, launches, real_err = slice_phase(dev)
+    llama, init_s = make_model(dev, "llama3-8b")
+    sl, launches, real_err = slice_phase(dev, llama)
+    sl["init_s"] = init_s
     emit(sl)
+    torch.cuda.empty_cache()
+
+    dense = dense_slice_phase(dev, llama, sl)
+    emit({"phase": "dense_slice", **dense})
+    torch.cuda.empty_cache()
+
+    prefix = prefix_handoff_phase(dev, llama)
+    emit({"phase": "prefix_handoff", **prefix})
+    del llama
     torch.cuda.empty_cache()
 
     flash = flash_phase(dev)
@@ -1417,6 +1824,10 @@ def main() -> int:
 
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
+    torch.cuda.empty_cache()
+
+    lean = lean_train_phase(dev)
+    emit({"phase": "lean_train", **lean})
     torch.cuda.empty_cache()
 
     gptj = gptj_phase(dev)
@@ -1438,6 +1849,12 @@ def main() -> int:
         "library_ms": kern["library_ms"],
         "frac_differing_fp32": max(c["frac_differing_fp32"] for c in
                                    timed + kern["coverage"]),
+        "launches_by_path": {
+            "slice": launches,
+            "dense_slice": dense["paged_kernel_launches"],
+            "prefix_cache": prefix["with_cache"]["paged_kernel_launches"],
+            "handoff_import":
+                prefix["handoff"]["import_paged_kernel_launches"]},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -1463,7 +1880,14 @@ def main() -> int:
                 "hd256": {key: w[key] for key in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "tflop_s")},
                 "fp32_hd256": {key: phase["fp32_hd256"][kind][key]
-                               for key in ("ms", "bound_ms", "tflop_s")}})
+                               for key in ("ms", "bound_ms", "tflop_s",
+                                           "plain_ms", "library_ms")}})
+            if kind in lean["kernels_at_shape"]:
+                rows[-1]["lean_train"] = {
+                    "launches": lean["launches"][kind],
+                    **{key: lean["kernels_at_shape"][kind][key] for key in (
+                        "shape", "launches_per_step", "ms", "bound_ms",
+                        "bound_by")}}
             tc = phase["tc_kernel"].get(kind.split("_", 1)[1])
             if tc is not None:
                 rows[-1].update(tflop_s=r["tflop_s"], **{
@@ -1476,9 +1900,11 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"device": device, "kernel": kern, "slice": sl, "flash": flash,
+        {"device": device, "kernel": kern, "slice": sl,
+         "dense_slice": dense, "prefix_handoff": prefix, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
-         "gptj": gptj, "loss": loss, **kernels}, indent=1))
+         "lean_train": lean, "gptj": gptj, "loss": loss, **kernels},
+        indent=1))
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

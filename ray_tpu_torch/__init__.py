@@ -8,10 +8,13 @@ own copy.  Every TPU kernel on a ported path becomes a hand-written CUDA
 C++ kernel under ``ray_tpu_torch/csrc/``, built with ``nvcc`` at first
 use (``ray_tpu_torch/ops/_build.py``).
 
-Ported so far: the paged continuous-batching serving path
-(``serve/llm_engine.py`` paged mode -> ``models/gpt.py`` paged decode ->
-``ops/paged_attention.py``) and the one-device training path
-(``train/step.py`` ``make_train`` -> ``models/gpt.py`` training forward
--> ``ops/attention.py`` -> ``ops/flash_attention.py``, with
+Ported so far: the continuous-batching serving engine's model side
+(``serve/llm_engine.py``: the dense slot mode -> ``models/gpt.py`` dense
+decode; the paged mode with its prefix cache and prefill handoffs ->
+``models/gpt.py`` paged decode -> ``ops/paged_attention.py``; ``stream``;
+``models/generate.py`` ``Generator``) and the one-device training path
+(``train/step.py`` ``make_train`` with AdamW or Adafactor ->
+``models/gpt.py`` training forward -> ``ops/attention.py`` ->
+``ops/flash_attention.py`` or ``ops/splash.py``, with
 ``ops/losses.py``).  ROADMAP.md lists what is still to come.
 """

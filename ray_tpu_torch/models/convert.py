@@ -24,12 +24,19 @@ under ``blocks_tail`` (unscanned: ``blocks_tai_{j}``, flax's
 init never splits its stack, so the tail is read only where the tree
 holds one.
 A flax kernel is [in, out]; ``nn.Linear`` stores [out, in].
+
+``jax_leaves`` lists that tree's leaves for a config, each with the
+port parameters that make it up.  ``params_from_jax`` reads the tree
+through it, and the port's Adafactor (``train/step.py``) keeps its
+statistics per leaf through it, since optax decides factoring and takes
+its block RMS values per JAX leaf.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,51 +44,112 @@ import torch
 from ray_tpu_torch.models.configs import TransformerConfig
 
 
-def _layer_tree(tree: Mapping, i: int, cfg: TransformerConfig) -> Mapping:
-    """Layer i's subtree: from the remat tail where the tree holds one
-    and i lies past the first ``remat_layers`` layers."""
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One leaf of the JAX GPT's parameter tree and the port parameters
+    that make it up.
+
+    ``path``: the keys down the flax tree (``("blocks", "attn", "wq",
+    "kernel")``); ``shape``: the leaf's shape; ``names``: the port
+    parameters, one per layer of a stacked leaf (``stacked``: the leaf
+    has a leading layer axis) or the one parameter of any other leaf.
+    A port parameter is a layer slice of the leaf in the port's layout:
+    a ``.weight`` [out, in] is the transpose of a flax kernel [in, ...]
+    with its trailing dims flattened (``to_leaf_layout``)."""
+    path: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    names: Tuple[str, ...]
+    stacked: bool
+
+    @property
+    def layer_shape(self) -> Tuple[int, ...]:
+        return self.shape[1:] if self.stacked else self.shape
+
+
+def to_leaf_layout(tensor: torch.Tensor, name: str,
+                   leaf: JaxLeaf) -> torch.Tensor:
+    """Port parameter ``name`` as its layer slice of ``leaf``, a view."""
+    if name.endswith(".weight"):
+        return tensor.T.reshape(leaf.layer_shape)
+    return tensor
+
+
+def _split_tail(cfg: TransformerConfig) -> bool:
+    """Whether the JAX training model splits its stack into ``blocks``
+    and ``blocks_tail`` (partial remat; ``stack_layers``' caller)."""
     n = cfg.remat_layers
-    if cfg.remat and n is not None and 0 < n <= i < cfg.n_layers and (
-            "blocks_tail" in tree or "blocks_tai_0" in tree):
-        if "blocks_tail" in tree:
-            return _index_tree(tree["blocks_tail"], i - n)
-        return tree[f"blocks_tai_{i - n}"]
-    if "blocks" in tree:
-        return _index_tree(tree["blocks"], i)
-    return tree[f"block_{i}"]
+    return (cfg.remat and n is not None
+            and 0 < max(0, min(n, cfg.n_layers)) < cfg.n_layers)
 
 
-def _index_tree(tree, i):
-    if isinstance(tree, Mapping):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
+def jax_leaves(cfg: TransformerConfig,
+               split_tail: Optional[bool] = None) -> List[JaxLeaf]:
+    """The JAX GPT's parameter leaves for ``cfg``, each with the port
+    parameters that make it up.  ``split_tail``: whether the tree splits
+    its stack for partial remat; by default as the training model does
+    (a decode-mode model never splits it)."""
+    d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    layer = {("attn", "wq", "kernel"): (d, h, hd),
+             ("attn", "wk", "kernel"): (d, kvh, hd),
+             ("attn", "wv", "kernel"): (d, kvh, hd),
+             ("attn", "wo", "kernel"): (h * hd, d),
+             ("attn_norm", "scale"): (d,),
+             ("mlp", "w_gate", "kernel"): (d, f),
+             ("mlp", "w_up", "kernel"): (d, f),
+             ("mlp", "w_down", "kernel"): (f, d),
+             ("mlp_norm", "scale"): (d,)}
+
+    def port_name(i: int, sub: Tuple[str, ...]) -> str:
+        if sub[-1] == "kernel":
+            return f"blocks.{i}.{sub[0]}.{sub[1]}.weight"
+        return f"blocks.{i}.{sub[0]}.scale"
+
+    if split_tail is None:
+        split_tail = _split_tail(cfg)
+    n_head = (max(0, min(cfg.remat_layers, cfg.n_layers)) if split_tail
+              else cfg.n_layers)
+    stacks = [("blocks", 0, n_head)]
+    if split_tail:
+        stacks.append(("blocks_tail", n_head, cfg.n_layers - n_head))
+    leaves = [JaxLeaf(("embed",), (cfg.vocab_size, d), ("embed",), False),
+              JaxLeaf(("final_norm", "scale"), (d,), ("final_norm.scale",),
+                      False)]
+    if not cfg.tie_embeddings:
+        leaves.append(JaxLeaf(("lm_head", "kernel"), (d, cfg.vocab_size),
+                              ("lm_head.weight",), False))
+    for name, first, n in stacks:
+        for sub, shape in layer.items():
+            if cfg.scan_layers:
+                leaves.append(JaxLeaf(
+                    (name,) + sub, (n,) + shape,
+                    tuple(port_name(first + j, sub) for j in range(n)),
+                    True))
+            else:
+                # flax names unscanned layers name[:-1]_j
+                leaves.extend(JaxLeaf(
+                    (f"{name[:-1]}_{j}",) + sub, shape,
+                    (port_name(first + j, sub),), False) for j in range(n))
+    return leaves
 
 
 def params_from_jax(tree: Mapping, cfg: TransformerConfig
                     ) -> Dict[str, torch.Tensor]:
     """The port GPT's state dict (CPU tensors) from a JAX GPT parameter
     tree of numpy arrays; load it with ``model.load_state_dict``."""
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a))       # a writable copy
-
-    d = cfg.d_model
-    sd: Dict[str, torch.Tensor] = {"embed": t(tree["embed"]),
-                                   "final_norm.scale":
-                                   t(tree["final_norm"]["scale"])}
-    if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = t(tree["lm_head"]["kernel"]).T
-    for i in range(cfg.n_layers):
-        lt = _layer_tree(tree, i, cfg)
-        a, m, p = lt["attn"], lt["mlp"], f"blocks.{i}."
-        for name in ("wq", "wk", "wv"):
-            sd[p + f"attn.{name}.weight"] = t(
-                np.asarray(a[name]["kernel"]).reshape(d, -1)).T
-        sd[p + "attn.wo.weight"] = t(a["wo"]["kernel"]).T
-        for name in ("w_gate", "w_up", "w_down"):
-            sd[p + f"mlp.{name}.weight"] = t(m[name]["kernel"]).T
-        sd[p + "attn_norm.scale"] = t(lt["attn_norm"]["scale"])
-        sd[p + "mlp_norm.scale"] = t(lt["mlp_norm"]["scale"])
-    return {k: v.contiguous() for k, v in sd.items()}
+    sd: Dict[str, torch.Tensor] = {}
+    split = "blocks_tail" in tree or "blocks_tai_0" in tree
+    for leaf in jax_leaves(cfg, split_tail=split):
+        arr = tree
+        for key in leaf.path:
+            arr = arr[key]
+        arr = np.asarray(arr)
+        for j, name in enumerate(leaf.names):
+            a = torch.from_numpy(np.array(arr[j] if leaf.stacked else arr))
+            if name.endswith(".weight"):
+                a = a.reshape(a.shape[0], -1).T
+            sd[name] = a.contiguous()
+    return sd
 
 
 @torch.no_grad()

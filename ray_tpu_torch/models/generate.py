@@ -1,17 +1,21 @@
-"""Sampling and decode-cache allocation (counterpart of
-ray_tpu/models/generate.py).
+"""Autoregressive decoding: sampling, the decode caches, and
+``Generator`` (counterpart of ray_tpu/models/generate.py).
 
-``Generator`` (lone generation over the dense cache) is not ported yet:
-ROADMAP.md Queue 1 item 2.
+``Generator`` runs the model's dense slot decode path (``kv_cache``): a
+prefill that is one wide step at offset 0, then one step per token.  The
+serving engine (``serve/llm_engine.py``) shares the sampler and both
+caches.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import List, Mapping, Optional, Union
 
 import torch
 
+from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.configs import TransformerConfig
+from ray_tpu_torch.models.gpt import GPT
 
 
 def _trim_logits(logits: torch.Tensor, top_k: int,
@@ -76,3 +80,91 @@ def init_decode_cache(cfg: TransformerConfig, num_pages: int, page_size: int,
     shape = (num_pages, cfg.n_kv_heads, page_size, 2 * cfg.head_dim)
     return [torch.zeros(shape, device=device, dtype=dtype or cfg.dtype)
             for _ in range(cfg.n_layers)]
+
+
+def init_dense_cache(cfg: TransformerConfig, rows: int, *, device,
+                     seq_len: Optional[int] = None) -> List[torch.Tensor]:
+    """Zeroed dense KV cache, one tensor per layer, each [2, rows,
+    seq_len, kv_heads, head_dim] (K, then V; ``seq_len`` defaults to
+    ``cfg.max_seq_len``) in ``cfg.dtype``: the cache JAX's
+    ``init_decode_cache`` builds for a dense decode model."""
+    shape = (2, rows, seq_len or cfg.max_seq_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    return [torch.zeros(shape, device=device, dtype=cfg.dtype)
+            for _ in range(cfg.n_layers)]
+
+
+class Generator:
+    """A model held for repeated generation over the dense cache.
+
+    ``params_or_model``: the port's ``GPT``, used as it is, or its state
+    dict, loaded into a new ``GPT`` in ``cfg.param_dtype``.  Runs on the
+    card unless ``device="cpu"`` is passed."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 params_or_model: Union[GPT, Mapping[str, torch.Tensor]], *,
+                 device=None):
+        self.cfg = cfg
+        if isinstance(params_or_model, GPT):
+            self.model = params_or_model
+            self.device = self.model.embed.device
+        else:
+            self.device = resolve_device(device)
+            self.model = GPT(cfg, device=self.device)
+            self.model.load_state_dict(params_or_model)
+            self.model.eval()
+
+    def init_cache(self, batch_size: int) -> List[torch.Tensor]:
+        return init_dense_cache(self.cfg, batch_size, device=self.device)
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, *, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_id: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """prompt_tokens [B, S] -> generated ids [B, <= max_new_tokens]
+        (int32).
+
+        Stops early only when *every* row has emitted ``eos_id``; rows
+        that finished earlier keep their first eos and are padded with
+        it.  ``generator``: the sampler's random stream (default: one
+        seeded with 0 on the model's device)."""
+        tokens = torch.as_tensor(prompt_tokens, dtype=torch.int32,
+                                 device=self.device)
+        b, s = tokens.shape
+        if s + max_new_tokens > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt {s} + {max_new_tokens} new > max_seq_len "
+                f"{self.cfg.max_seq_len}")
+        if max_new_tokens <= 0:
+            return torch.zeros(b, 0, dtype=torch.int32, device=self.device)
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        cache = self.init_cache(b)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        logits = self.model(tokens, positions, kv_cache=cache)[:, -1]
+        out = []
+        done = torch.zeros(b, dtype=torch.bool, device=self.device)
+        for i in range(max_new_tokens):
+            token = sample_logits(logits, temperature=temperature,
+                                  top_k=top_k, top_p=top_p,
+                                  generator=generator)
+            if eos_id is not None:
+                token = torch.where(done, eos_id, token).to(torch.int32)
+                done = done | (token == eos_id)
+            out.append(token)
+            if i == max_new_tokens - 1 or (eos_id is not None
+                                           and bool(done.all())):
+                break   # the logits for a further token are never needed
+            pos = torch.full((b, 1), s + i, device=self.device)
+            logits = self.model(token[:, None], pos, kv_cache=cache)[:, -1]
+        return torch.stack(out, dim=1)
+
+
+def generate(cfg: TransformerConfig, params_or_model, prompt_tokens, *,
+             device=None, **kwargs) -> torch.Tensor:
+    """One-shot convenience wrapper around ``Generator``."""
+    return Generator(cfg, params_or_model, device=device).generate(
+        prompt_tokens, **kwargs)

@@ -12,11 +12,13 @@ The JAX module chooses its path from ``decode``/``paged_pages``
 attributes; here the caller's arguments choose it:
 
   - ``kv_pools`` and ``block_tables`` given -> paged decode
-    (``_decode_attend_paged``): T > 1 is prompt prefill, T == 1 a decode
-    step through ``ops/paged_attention.py``.  The pools belong to the
-    caller (the serving engine) and are updated in place.
-  - ``kv_pools`` without ``block_tables`` -> dense slot decode, not yet
-    ported.
+    (``_decode_attend_paged``): T > 1 is prompt prefill (with
+    ``prefix_attend``, a suffix prefill over cached pages), T == 1 a
+    decode step through ``ops/paged_attention.py``.  The pools belong to
+    the caller (the serving engine) and are updated in place.
+  - ``kv_cache`` given -> dense slot decode (``_decode_attend``) over
+    per-row cache rows (``models/generate.py`` ``init_dense_cache``),
+    updated in place.
   - neither -> the training forward: causal attention through
     ``ops/attention.py`` with ``cfg.attention_impl``, each block under
     ``torch.utils.checkpoint`` per ``cfg.remat``/``remat_policy``/
@@ -113,7 +115,9 @@ class Attention(nn.Module):
         self.wo = Dense(h * hd, d, cfg.dtype, **kw)
 
     def forward(self, x, cos, sin, positions=None, block_tables=None,
-                kv_pool=None, prefix_attend: bool = False):
+                kv=None, prefix_attend: bool = False):
+        """``kv``: this layer's paged pool (with ``block_tables``) or its
+        dense cache [2, rows, S, kvh, hd] (without)."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -122,11 +126,11 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, t, kvh, hd)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-        if kv_pool is not None and block_tables is not None:
+        if kv is not None and block_tables is not None:
             out = self._decode_attend_paged(q, k, v, positions, block_tables,
-                                            kv_pool, prefix_attend)
-        elif kv_pool is not None:
-            out = self._decode_attend(q, k, v, positions)
+                                            kv, prefix_attend)
+        elif kv is not None:
+            out = self._decode_attend(q, k, v, positions, kv)
         else:
             out = self._train_attend(q, k, v)
         return self.wo(out.reshape(b, t, h * hd))
@@ -137,10 +141,34 @@ class Attention(nn.Module):
         are)."""
         return attention(q, k, v, causal=True, impl=self.cfg.attention_impl)
 
-    def _decode_attend(self, q, k, v, positions):
-        raise NotImplementedError(
-            "dense slot-mode decode is not ported yet: ROADMAP.md Queue 1 "
-            "item 2 (dense slot mode, prefix_attend, handoffs)")
+    def _decode_attend(self, q, k, v, positions, cache):
+        """Write K/V into the dense cache at per-row positions, then
+        attend over the whole row under a position mask.
+
+        ``positions`` [B, T]: absolute positions, contiguous per row
+        from ``positions[:, 0]``; rows may sit at different offsets (each
+        row is its own request in the serving engine).  ``cache`` [2, B,
+        S, kvh, hd] (K, then V) is written in place; as JAX's
+        ``dynamic_update_slice``, a window that would run past S starts
+        at S - T.  Key j is visible to the query at position p iff
+        j <= p.  The reference computes this with XLA (``xla_attention``
+        over the row), not with a Pallas kernel, so it runs as plain
+        PyTorch (``dense_attention``) here.
+        """
+        if positions is None:
+            raise ValueError("dense decode requires positions")
+        b, t = q.shape[:2]
+        s = cache.shape[2]
+        positions = positions.long()
+        start = positions[:, 0].clamp(min=0, max=s - t)
+        idx = start[:, None] + torch.arange(t, device=q.device)
+        rows = torch.arange(b, device=q.device)[:, None]
+        cache[0][rows, idx] = k.to(cache.dtype)
+        cache[1][rows, idx] = v.to(cache.dtype)
+        k_idx = torch.arange(s, device=q.device)
+        mask = k_idx[None, None, None, :] <= positions[:, None, :, None]
+        return dense_attention(q, cache[0], cache[1], causal=False,
+                               mask=mask)
 
     def _decode_attend_paged(self, q, k, v, positions, block_tables,
                              kv_pool, prefix_attend):
@@ -171,11 +199,22 @@ class Attention(nn.Module):
         # layout is [B, T, kvh, 2hd], as in the JAX scatter
         kv_pool[pages, :, offs] = kv
         if q.shape[1] > 1:
-            if prefix_attend:
-                raise NotImplementedError(
-                    "prefix_attend (suffix prefill over cached pages) is "
-                    "not ported yet: ROADMAP.md Queue 1 item 2")
-            return dense_attention(q, k, v, causal=True)
+            if not prefix_attend:
+                return dense_attention(q, k, v, causal=True)
+            # suffix prefill: leading table entries hold a cached prompt
+            # prefix, so gather the row's whole logical span back out of
+            # the pool and mask by absolute position.  Unallocated entries
+            # point at scratch page 0, whose garbage sits past every real
+            # query position.  XLA computes this in the reference, so it
+            # is plain PyTorch here too.
+            hd = q.shape[-1]
+            gathered = kv_pool[block_tables.long()]  # [B, mp, kvh, ps, 2hd]
+            span = gathered.transpose(2, 3).reshape(
+                q.shape[0], -1, kv_pool.shape[1], 2 * hd)
+            k_idx = torch.arange(span.shape[1], device=q.device)
+            mask = k_idx[None, None, None, :] <= positions[:, None, :, None]
+            return dense_attention(q, span[..., :hd], span[..., hd:],
+                                   causal=False, mask=mask)
         out = paged_attention(q[:, 0], kv_pool, block_tables,
                               (positions[:, 0] + 1).to(torch.int32))
         return out[:, None]
@@ -194,15 +233,15 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, **kw)
 
     def forward(self, x, cos, sin, positions=None, block_tables=None,
-                kv_pool=None, prefix_attend: bool = False):
-        x = self.attn_half(x, cos, sin, positions, block_tables, kv_pool,
+                kv=None, prefix_attend: bool = False):
+        x = self.attn_half(x, cos, sin, positions, block_tables, kv,
                            prefix_attend)
         return self.mlp_half(x)
 
     def attn_half(self, x, cos, sin, positions=None, block_tables=None,
-                  kv_pool=None, prefix_attend: bool = False):
+                  kv=None, prefix_attend: bool = False):
         return x + self.attn(self.attn_norm(x), cos, sin, positions,
-                             block_tables, kv_pool, prefix_attend)
+                             block_tables, kv, prefix_attend)
 
     def mlp_half(self, x):
         return x + self.mlp(self.mlp_norm(x))
@@ -253,30 +292,39 @@ class GPT(nn.Module):
         self.register_buffer("cos", cos, persistent=False)
         self.register_buffer("sin", sin, persistent=False)
 
-    def _n_remat(self, kv_pools) -> int:
+    def _n_remat(self, decoding: bool) -> int:
         """How many leading blocks run under checkpointing: none when
         decoding or without gradients; else ``remat_layers`` when it lies
         strictly between 0 and n_layers, and all of them otherwise (as
         the JAX model splits its stack)."""
         cfg = self.cfg
-        if not cfg.remat or kv_pools is not None \
-                or not torch.is_grad_enabled():
+        if not cfg.remat or decoding or not torch.is_grad_enabled():
             return 0
         n = cfg.n_layers if cfg.remat_layers is None else cfg.remat_layers
         return n if 0 < n < cfg.n_layers else cfg.n_layers
 
     def forward(self, tokens, positions=None, *, return_hidden: bool = False,
                 block_tables=None, kv_pools: Optional[List] = None,
+                kv_cache: Optional[List] = None,
                 prefix_attend: bool = False):
+        """``kv_pools`` with ``block_tables``: paged decode; ``kv_cache``:
+        dense slot decode (see the module docstring)."""
         cfg = self.cfg
-        if kv_pools is not None and len(kv_pools) != cfg.n_layers:
-            raise ValueError(f"{len(kv_pools)} KV pools for "
+        if kv_pools is not None and kv_cache is not None:
+            raise ValueError("pass kv_pools (paged) or kv_cache (dense), "
+                             "not both")
+        if (kv_pools is None) != (block_tables is None):
+            raise ValueError("paged decode takes kv_pools and block_tables "
+                             "together")
+        caches = kv_pools if kv_pools is not None else kv_cache
+        if caches is not None and len(caches) != cfg.n_layers:
+            raise ValueError(f"{len(caches)} KV caches for "
                              f"{cfg.n_layers} layers")
         x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
-        n_remat = self._n_remat(kv_pools)
+        n_remat = self._n_remat(caches is not None)
         for i, blk in enumerate(self.blocks):
             args = (self.cos, self.sin, positions, block_tables,
-                    None if kv_pools is None else kv_pools[i], prefix_attend)
+                    None if caches is None else caches[i], prefix_attend)
             if i < n_remat:
                 x = remat_block(blk, cfg.remat_policy, x, *args)
             else:

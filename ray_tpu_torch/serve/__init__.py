@@ -1,1 +1,2 @@
-"""Serving of the port: the paged continuous-batching LLM engine."""
+"""Serving of the port: the continuous-batching LLM engine (dense and
+paged modes, prefix cache, prefill handoffs)."""

@@ -23,7 +23,13 @@ The optimizer repeats optax's arithmetic, not ``torch.optim``'s:
     scales the stored moment, as in optax);
   - ``accum_steps > 1`` follows ``optax.MultiSteps``: a running mean of the
     gradients, one real update every k-th call, and a schedule that counts
-    only real updates.
+    only real updates;
+  - ``optimizer="adafactor"`` is ``optax.adafactor`` as the reference
+    configures it (``Adafactor``), whose statistics live per leaf of the
+    JAX parameter tree (``models/convert.py`` ``jax_leaves``).
+
+The optimizers run as ``_foreach`` and tensor ops, as XLA runs optax's
+on the TPU: no Pallas kernel there, so no hand-written one here.
 
 The MoE routers' aux loss (``_lm_loss_body``) waits for the MoE block.
 """
@@ -34,8 +40,11 @@ import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+
+from ray_tpu_torch.models.convert import jax_leaves, to_leaf_layout
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,6 +85,14 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def _clip_scale(gs, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm's factor: 1 where norm < max, else
+    max / norm (no epsilon; ``clip_grad_norm_`` adds 1e-6)."""
+    norm = global_norm(gs)
+    return torch.where(norm < max_norm, torch.ones_like(norm),
+                       max_norm / norm)
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1,
     b2, eps, weight_decay, mu_dtype, mask))`` over named parameters,
@@ -101,11 +118,7 @@ class AdamW:
                state: Dict[str, Any]) -> Dict[str, Any]:
         names = list(params)
         gs = [grads[n].float() for n in names]
-        norm = global_norm(gs)
-        # optax.clip_by_global_norm: g where norm < max, else g / norm * max
-        scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                            self.grad_clip / norm)
-        gs = torch._foreach_mul(gs, scale)
+        gs = torch._foreach_mul(gs, _clip_scale(gs, self.grad_clip))
         b1, b2 = self.b1, self.b2
         # optax multiplies the moment by a weakly typed b1, which takes
         # the moment's dtype (0.8984375 for bf16); the jitted product
@@ -135,11 +148,154 @@ class AdamW:
                 "nu": state["nu"]}
 
 
+# optax.adafactor's settings: the reference's min_dim_size_to_factor and
+# the defaults it leaves as they are
+_MIN_DIM_TO_FACTOR = 128     # factor only when two dims reach this
+_FACTOR_DECAY = 0.8          # second-moment decay exponent
+_FACTOR_EPS = 1e-30          # added to the squared gradient
+_BLOCK_RMS_CLIP = 1.0        # clip_by_block_rms threshold
+_PARAM_RMS_MIN = 1e-3        # scale_by_param_block_rms min_scale
+
+
+def factored_dims(shape):
+    """optax's ``_factored_dims``: the (second largest, largest) axes of
+    ``shape`` when the second largest has at least _MIN_DIM_TO_FACTOR
+    elements, else None.  ``np.argsort`` orders ties as optax's does."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """``optax.chain(clip_by_global_norm(grad_clip), adafactor(schedule,
+    min_dim_size_to_factor=128, weight_decay_rate, weight_decay_mask))``
+    over named parameters, applied in place.
+
+    optax decides per leaf of the JAX parameter tree, so every statistic
+    here is kept and taken per ``JaxLeaf`` (``models/convert.py``): a
+    stacked leaf holds all the layers of a scanned stack, and its
+    factoring, its block RMS clip and its parameter-scale RMS are those
+    of the whole stack.  For each leaf the port parameters are viewed in
+    the leaf's layout and stacked (one leaf-sized copy at a time), the
+    leaf's update is computed as optax computes it, and each parameter
+    takes its slice.  The chain, per leaf:
+
+      - ``scale_by_factored_rms``: decay ``1 - (count + 1)^-0.8``; a
+        factored leaf keeps row and column means of ``g^2 + 1e-30`` over
+        its two largest axes (``factored_dims``), any other leaf the
+        full second moment;
+      - ``clip_by_block_rms(1)``, ``scale_by_learning_rate``,
+        ``scale_by_param_block_rms(1e-3)``;
+      - ``add_decayed_weights(weight_decay_rate)`` on the kernels and
+        ``embed``: a raw per-step decay, not scaled by the learning rate
+        (the reference passes ``lr * weight_decay``); then ``-1``.
+    """
+
+    def __init__(self, schedule: Callable[[int], float], leaves, *,
+                 grad_clip: float, weight_decay_rate: float):
+        self.schedule = schedule
+        self.leaves = list(leaves)
+        self.grad_clip = grad_clip
+        self.weight_decay_rate = weight_decay_rate
+        self.factored = [factored_dims(leaf.shape) for leaf in self.leaves]
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        """count and, per leaf (keyed by its path), ``v_row`` and
+        ``v_col`` for a factored leaf or ``v`` for any other, fp32."""
+        names = {n for leaf in self.leaves for n in leaf.names}
+        if names != set(params):
+            raise ValueError(
+                f"the parameters differ from the JAX tree's leaves: "
+                f"{sorted(names ^ set(params))[:6]}")
+        state: Dict[str, Any] = {"count": 0, "v_row": {}, "v_col": {},
+                                 "v": {}}
+        for leaf, dims in zip(self.leaves, self.factored):
+            dev = params[leaf.names[0]].device
+            key = "/".join(leaf.path)
+
+            def zeros(shape):
+                return torch.zeros(tuple(shape), dtype=torch.float32,
+                                   device=dev)
+            if dims is None:
+                state["v"][key] = zeros(leaf.shape)
+            else:
+                d1, d0 = dims
+                state["v_row"][key] = zeros(np.delete(leaf.shape, d0))
+                state["v_col"][key] = zeros(np.delete(leaf.shape, d1))
+        return state
+
+    @staticmethod
+    def _leaf_grad(leaf, grads: Params, scale) -> torch.Tensor:
+        """The leaf's gradient times the clip factor, in the leaf's
+        layout: a new fp32 tensor (the update is computed in it)."""
+        views = [to_leaf_layout(grads[n].float(), n, leaf)
+                 for n in leaf.names]
+        if not leaf.stacked:
+            return views[0] * scale
+        g = torch.empty(leaf.shape, dtype=torch.float32, device=scale.device)
+        for j, view in enumerate(views):
+            torch.mul(view, scale, out=g[j])
+        return g
+
+    @torch.no_grad()
+    def update(self, params: Params, grads: Params,
+               state: Dict[str, Any]) -> Dict[str, Any]:
+        scale = _clip_scale([grads[n].float() for leaf in self.leaves
+                             for n in leaf.names], self.grad_clip)
+        count = state["count"]
+        # optax: t = float32(count + 1); decay = 1 - t^-0.8, in fp32
+        t = torch.tensor(count + 1, dtype=torch.float32)
+        decay = float(1.0 - t ** -_FACTOR_DECAY)
+        lr = float(torch.tensor(self.schedule(count), dtype=torch.float32))
+        decayed = _decay_mask(params)
+        for leaf, dims in zip(self.leaves, self.factored):
+            key = "/".join(leaf.path)
+            u = self._leaf_grad(leaf, grads, scale)
+            g_sq = torch.square(u).add_(_FACTOR_EPS)
+            if dims is None:
+                v = state["v"][key]
+                v.mul_(decay).add_(g_sq, alpha=1.0 - decay)
+                u.mul_(v.rsqrt())
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][key], state["v_col"][key]
+                v_row.mul_(decay).add_(g_sq.mean(d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(g_sq.mean(d1), alpha=1.0 - decay)
+                r1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(r1, keepdim=True)).rsqrt()
+                u.mul_(row_factor.unsqueeze(d0)).mul_(
+                    v_col.rsqrt().unsqueeze(d1))
+            del g_sq
+            # clip_by_block_rms(1), the learning rate, and
+            # scale_by_param_block_rms: rms(p) over the leaf, at least
+            # min_scale; the three scalars applied in one pass
+            n_el = math.sqrt(math.prod(leaf.shape))
+            u_rms = torch.linalg.vector_norm(u) / n_el
+            p_rms = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                [params[n].float() for n in leaf.names]))) / n_el
+            u.mul_(lr * p_rms.clamp(min=_PARAM_RMS_MIN)
+                   / torch.clamp(u_rms / _BLOCK_RMS_CLIP, min=1.0))
+            for j, n in enumerate(leaf.names):
+                u_n = u[j] if leaf.stacked else u
+                if n.endswith(".weight"):
+                    u_n = u_n.reshape(u_n.shape[0], -1).T
+                p = params[n]
+                if self.weight_decay_rate and decayed[n]:
+                    u_n.add_(p, alpha=self.weight_decay_rate)
+                p.sub_(u_n)
+        state["count"] = count + 1
+        return state
+
+
 class MultiSteps:
     """``optax.MultiSteps(inner, k)``: average the gradients of k calls and
-    apply ``inner`` on every k-th; the calls between move nothing."""
+    apply ``inner`` (``AdamW`` or ``Adafactor``) on every k-th; the calls
+    between move nothing."""
 
-    def __init__(self, inner: AdamW, every_k: int):
+    def __init__(self, inner, every_k: int):
         self.inner, self.k = inner, every_k
 
     def init(self, params: Params) -> Dict[str, Any]:
@@ -185,19 +341,38 @@ class OptimizerConfig:
             max(self.decay_steps, self.warmup_steps + 1),
             self.learning_rate * self.min_lr_ratio)
 
-    def make(self):
+    def make(self, cfg=None):
+        """The optimizer.  Adafactor keeps its statistics per leaf of
+        the JAX tree of model config ``cfg``, which it then needs."""
         if self.optimizer == "adafactor":
-            raise NotImplementedError(
-                "adafactor is not ported yet: ROADMAP.md Queue 1 item 1 "
-                "(the rest of training)")
-        if self.optimizer != "adamw":
+            if cfg is None:
+                raise ValueError("adafactor needs the model config: "
+                                 "make(cfg)")
+            # the reference's approximation of decoupled decay: optax
+            # applies the rate raw, once per step
+            tx = Adafactor(self.schedule(), jax_leaves(cfg),
+                           grad_clip=self.grad_clip,
+                           weight_decay_rate=(self.weight_decay
+                                              * self.learning_rate))
+        elif self.optimizer == "adamw":
+            tx = AdamW(self.schedule(), b1=self.b1, b2=self.b2,
+                       weight_decay=self.weight_decay,
+                       grad_clip=self.grad_clip,
+                       mu_dtype=_DTYPES[self.mu_dtype])
+        else:
             raise ValueError(f"unknown optimizer {self.optimizer!r}")
-        tx = AdamW(self.schedule(), b1=self.b1, b2=self.b2,
-                   weight_decay=self.weight_decay, grad_clip=self.grad_clip,
-                   mu_dtype=_DTYPES[self.mu_dtype])
         if self.accum_steps > 1:
             return MultiSteps(tx, self.accum_steps)
         return tx
+
+
+def state_nbytes(state) -> int:
+    """Bytes of every tensor in an optimizer state (nested dicts)."""
+    if torch.is_tensor(state):
+        return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        return sum(state_nbytes(v) for v in state.values())
+    return 0
 
 
 def cast_params_once(model: nn.Module, dtype=torch.bfloat16) -> Params:
@@ -304,7 +479,7 @@ def make_train(model: nn.Module,
     norm of the raw gradients, before clipping), read without a host sync.
     ``z_loss`` defaults to ``model.cfg.z_loss``.
     """
-    tx = (optimizer or OptimizerConfig()).make()
+    tx = (optimizer or OptimizerConfig()).make(getattr(model, "cfg", None))
     if z_loss is None:
         z_loss = getattr(getattr(model, "cfg", None), "z_loss", 0.0)
 
@@ -321,7 +496,10 @@ def make_train(model: nn.Module,
                  for (n, p), g in zip(params.items(), raw)}
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads.values())
-        state.opt_state = tx.update(params, grads, state.opt_state)
+        # a profiler range, so a trace can tell the optimizer's device
+        # time from the rest of the step's
+        with torch.profiler.record_function("optimizer"):
+            state.opt_state = tx.update(params, grads, state.opt_state)
         state.step += 1
         return state, metrics
 

@@ -116,9 +116,13 @@ def test_stale_slot_redirect_protects_recycled_pages(weights):
 
 
 def test_port_engine_eos_oversized_and_unported(weights, jax_results):
+    """eos, a request too large for the pool, and the handoff calls that
+    this test once held to be unported: a paged engine exports a prompt
+    (its first token is the greedy one), and a dense engine refuses to,
+    as the reference's does."""
     _, tree, tcfg = weights
-    eng = LLMEngine(tcfg, params_from_jax(tree, tcfg), device="cpu",
-                    max_prompt_len=60, **ENGINE)
+    sd = params_from_jax(tree, tcfg)
+    eng = LLMEngine(tcfg, sd, device="cpu", max_prompt_len=60, **ENGINE)
     try:
         eng.warmup(prompt_lens=[3])
         eos = jax_results[0].tokens[2]
@@ -130,12 +134,19 @@ def test_port_engine_eos_oversized_and_unported(weights, jax_results):
             eng.submit([9] * 60, max_new_tokens=128)
         r2 = eng.submit(PROMPTS[1], max_new_tokens=NEW)
         assert r2.tokens == jax_results[1].tokens
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.export_prefill([1])
+        h = eng.export_prefill(PROMPTS[0], max_new_tokens=NEW)
+        assert h.first_token == jax_results[0].tokens[0]
+        assert h.npages == 1 and tuple(h.kv.shape) == (
+            tcfg.n_layers, 1, tcfg.n_kv_heads, 16, 2 * tcfg.head_dim)
     finally:
         eng.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine(tcfg, {}, paged=False, device="cpu")
+    dense = LLMEngine(tcfg, sd, device="cpu")
+    try:
+        assert not dense.paged
+        with pytest.raises(RuntimeError, match="paged=True"):
+            dense.export_prefill([1])
+    finally:
+        dense.close()
     with pytest.raises(RuntimeError, match="closed"):
         eng.submit([1])
 

@@ -23,7 +23,6 @@ from ray_tpu_torch.models.configs import get_config
 from ray_tpu_torch.models.convert import init_weights, params_from_jax
 from ray_tpu_torch.models.generate import init_decode_cache
 from ray_tpu_torch.models.gpt import GPT
-from ray_tpu_torch.train.step import OptimizerConfig
 
 ATOL = 1e-4
 PS = 16
@@ -127,20 +126,15 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         LLMEngine(cfg, {})
 
 
-@pytest.mark.parametrize("path", ["ring", "adafactor", "slot_decode"])
+@pytest.mark.parametrize("path", ["ring", "moe", "ulysses"])
 def test_unported_paths_raise_and_name_the_roadmap(path):
-    cfg = get_config("tiny")
     tokens = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "ring":
-            GPT(get_config("tiny", attention_impl="ring"),
-                device="cpu")(tokens)
-        elif path == "adafactor":
-            OptimizerConfig(optimizer="adafactor").make()
+        if path == "moe":
+            GPT(get_config("tiny-moe"), device="cpu")
         else:
-            pools = init_decode_cache(cfg, 4, PS, device="cpu")
-            GPT(cfg, device="cpu")(tokens, torch.arange(4)[None],
-                                   kv_pools=pools)
+            GPT(get_config("tiny", attention_impl=path),
+                device="cpu")(tokens)
 
 
 def test_bf16_compute_over_fp32_params_matches_jax():

@@ -35,7 +35,7 @@ from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.models.gpt import GPT
 from ray_tpu_torch.ops.losses import chunked_lm_loss, softmax_cross_entropy
 from ray_tpu_torch.train.step import (OptimizerConfig, lm_loss_chunked_fn,
-                                      lm_loss_fn, make_train)
+                                      lm_loss_fn, make_train, state_nbytes)
 
 RTOL = 1e-5
 PARAM_MAX = 5e-5
@@ -151,12 +151,43 @@ def test_three_train_steps_match_make_sharded_train(case):
     einsum path, the same function; a mask covers the batch contract.
     bf16 first moments differ only where the two round the same fp32
     value, so mu_bf16 keeps the fp32 tolerances."""
-    over = dict(n_kv_heads=2, max_seq_len=64)
     opt = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=10)
     if case == "accum2":
         opt["accum_steps"] = 2
     if case == "mu_bf16":
         opt["mu_dtype"] = "bfloat16"
+    _steps_match_make_sharded_train(dict(n_kv_heads=2, max_seq_len=64), opt)
+
+
+@pytest.mark.parametrize("case", ["scan", "unrolled", "remat_tail",
+                                  "accum2"])
+def test_adafactor_steps_match_make_sharded_train(case):
+    """optimizer="adafactor" as in the AdamW test, at d_model 128, d_ff
+    256 and 4 heads of 32, so that embed, lm_head, wo and the MLP
+    kernels are factored while wq [L, 128, 4, 32] and the norm scales are
+    not; scanned, unrolled (every layer its own leaf), with the stack
+    split for partial remat (two stacks, each with its own block RMS
+    values), and under MultiSteps.  Same tolerances as AdamW: adafactor
+    divides each gradient by a root mean square too, and its factored
+    estimate averages over rows and columns, so it amplifies rounding
+    no more than Adam does."""
+    over = dict(n_kv_heads=2, max_seq_len=64, d_model=128, d_ff=256,
+                n_heads=4)
+    opt = dict(learning_rate=1e-3, warmup_steps=2, decay_steps=10,
+               optimizer="adafactor")
+    if case == "unrolled":
+        over["scan_layers"] = False
+    if case == "remat_tail":
+        over.update(remat=True, remat_layers=1)
+    if case == "accum2":
+        opt["accum_steps"] = 2
+    _steps_match_make_sharded_train(over, opt)
+
+
+def _steps_match_make_sharded_train(over, opt):
+    """Three updates of make_train against make_sharded_train: losses and
+    gradient norms at each call within RTOL, the parameters after within
+    PARAM_MAX / PARAM_MEAN, and moved by the steps."""
     jcfg = jax_config("tiny", attention_impl="xla", **over)
     tcfg = get_config("tiny", attention_impl="flash", **over)
     batch = _batch(tcfg)
@@ -238,3 +269,29 @@ def test_unknown_remat_policy_raises():
     cfg = get_config("tiny", remat=True, remat_policy="everything")
     with pytest.raises(ValueError, match="remat_policy"):
         lm_loss_fn(GPT(cfg, device="cpu"), _batch(cfg, b=1, s=8))
+
+
+@pytest.mark.parametrize("optimizer,want", [("adafactor", 711_708_752),
+                                             ("adamw", 8_580_720_648)])
+def test_optimizer_state_size_matches_jax_at_gpt_large(optimizer, want):
+    """The optimizer state of bench.py's memory-lean gpt-large run, from
+    shapes alone (the port's parameters on the meta device, JAX's by
+    eval_shape): JAX's bytes are pinned, and the port's must come within
+    1 KB of them (optax keeps a few placeholder scalars the port does
+    not).  A grouping that factored each port tensor on its own would
+    factor wq, wk and wv ([1280, 1280] alone, [36, 1280, 20, 64] in the
+    JAX tree) and miss by 708 MB."""
+    over = dict(max_seq_len=1024, remat=True, remat_policy="nothing")
+    jcfg = jax_config("gpt-large", **over)
+    jparams = nn.meta.unbox(jax.eval_shape(
+        lambda: JaxGPT(jcfg).init(jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]))
+    jstate = jax.eval_shape(
+        JaxOptimizerConfig(optimizer=optimizer).make().init, jparams)
+    assert sum(np.prod(a.shape) * a.dtype.itemsize
+               for a in jax.tree.leaves(jstate)) == want
+    cfg = get_config("gpt-large", **over)
+    model = GPT(cfg, device="meta")
+    state = OptimizerConfig(optimizer=optimizer).make(cfg).init(
+        dict(model.named_parameters()))
+    assert abs(state_nbytes(state) - want) <= 1024
