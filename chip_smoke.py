@@ -82,9 +82,26 @@ package.  Phases, one JSON line each:
   8. gptj     gptj-6b (16 heads of 256) at full width, depth cut to 2:
               the train runs of phases 6 and 7 at batch 2 x 1024 for 3
               steps each, and the engine of phase 3 serving 4 requests.
-  9. loss     chunked_lm_loss on bf16 tensors of the card against the
+  9. moe_slice  mixtral-8x7b (8 experts of 14336, top-2, GQA 32/8) at
+              full width, depth cut to 8, random bf16 weights from the
+              seed, served by the paged engine and then the dense one
+              with the slice phase's settings and requests: every
+              request completes, K4 launches n_layers x decode steps
+              (paged) and 0 times (dense), and every greedy request
+              passes a teacher-forced check that prefills the prompt
+              padded as the engine pads it, then feeds the tokens one at
+              a time; decode tokens/s, TTFT, decode step ms (device ms
+              with the experts' GEMMs apart), peak memory, and the share
+              of (token, choice) pairs the prefills dropped.
+ 10. moe_train  mixtral-8x7b at full width, depth cut to 2: Adafactor,
+              remat "dots", batch 8 x 1024 through K1-K3 for 5 steps
+              under the train phase's gates (the MoE aux loss finite and
+              positive), the optimizer state within 1 KB of JAX's; MFU
+              from the active parameters (attention, top-2 experts,
+              router, head).
+ 11. loss     chunked_lm_loss on bf16 tensors of the card against the
               same call on the CPU.
- 10. kernels  one line listing every kernel of the port.
+ 12. kernels  one line listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -207,6 +224,19 @@ GPTJ_STEPS = 3
 # .make().init over gpt-large's parameter tree; a few bytes of it are
 # optax placeholders); tests/test_torch_train.py pins the same number
 ADAFACTOR_STATE_BYTES = 711_708_752
+# mixtral-8x7b at full width: serving keeps 8 of its 32 layers (11.87 B
+# parameters, 23.7 GB in bf16; all 32 are 93 GB), training 2 (3.16 B
+# fp32 parameters, 12.7 GB, as much again for the gradients, and 3.8 GB
+# for each temporary of Adafactor's update of a [2, 8, 4096, 14336]
+# expert stack)
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 5
+# The Adafactor state of the moe_train run as JAX counts it (jax.eval_shape
+# of OptimizerConfig(optimizer="adafactor").make().init over mixtral-8x7b's
+# tree at depth 2, max_seq_len 1024, remat "dots"); tests/test_torch_moe.py
+# pins the same number
+MIXTRAL_ADAFACTOR_STATE_BYTES = 5_859_404
 
 
 def emit(obj) -> None:
@@ -584,18 +614,64 @@ def teacher_forced(engine, prompt, tokens) -> dict:
     with torch.no_grad():
         logits = engine.model(toks, pos, block_tables=table,
                               kv_pools=pools)[0, len(prompt) - 1:]
+    return forced_gaps(logits, tokens)
+
+
+def forced_gaps(logits, tokens) -> dict:
+    """Where each greedy token stands in the logits [len(tokens), vocab]
+    that predict it: the largest gap to the best logit, and the share of
+    tokens that are the argmax (a logit equal to the best one)."""
+    import torch
+    dev = logits.device
     chosen = logits[torch.arange(len(tokens), device=dev),
                     torch.tensor(tokens, device=dev)]
     gaps = logits.max(dim=-1).values - chosen
-    # a token whose logit equals the best one is that path's argmax
     return {"max_gap": float(gaps.max()),
             "agree": float((gaps == 0).float().mean())}
+
+
+def gemm_kernel(name: str) -> bool:
+    """Whether a kernel's name is that of a cuBLAS / CUTLASS GEMM."""
+    key = name.lower()
+    return ("nvjet" in key or "gemm" in key or "splitk" in key
+            or "cutlass" in key)
+
+
+# the profiler ranges the port opens (``train/step.py``, ``ops/moe.py``):
+# each also shows on the device timeline as a span over its kernels,
+# which is not a kernel itself
+RANGES = ("optimizer", "moe_experts")
+
+
+def kernel_events(prof):
+    """The trace's kernels (device events that are not a range's span)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name not in RANGES
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def span_device_ms(prof, name: str, kernel=lambda name: True) -> float:
+    """Device ms of the kernels (those whose name passes ``kernel``)
+    inside the device-timeline spans of the profiler range ``name``.  A
+    range's kernels run in order on one stream, so its spans hold them
+    and no others.  The CPU side's links from ops to kernels are not
+    used: in a trace of a train step they attach kernels to more than
+    one op, so a range's ``device_time_total`` can exceed the step."""
+    from torch.autograd import DeviceType
+    spans = [e.time_range for e in prof.events()
+             if e.name == name and e.device_type == DeviceType.CUDA]
+    return sum(k.time_range.elapsed_us() for k in kernel_events(prof)
+               if kernel(k.name) and any(
+                   s.start <= k.time_range.start and k.time_range.end <= s.end
+                   for s in spans)) / 1e3
 
 
 def decode_step(engine) -> tuple:
     """One block of decode steps over all rows, on the state the run left
     (finished requests' tables and lengths): wall ms per step from CUDA
-    events, and device ms per step by kernel group from torch.profiler."""
+    events, and device ms per step by kernel group from torch.profiler
+    (with experts, their GEMMs apart from the other GEMMs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     k_steps = engine.block_size
@@ -606,20 +682,24 @@ def decode_step(engine) -> tuple:
         engine._block_step()
         end.record()
         end.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             engine._block_step()
             torch.cuda.synchronize()
     groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        name = e.key
-        if "paged_attention_kernel" in name:
+    for e in kernel_events(prof):
+        if "paged_attention_kernel" in e.name:
             group = "paged_attention"
-        elif ("nvjet" in name or "gemm" in name.lower()
-              or "splitKreduce" in name):
+        elif gemm_kernel(e.name):
             group = "gemm"
         else:
             group = "other"
-        groups[group] += e.self_device_time_total / 1e3 / k_steps
+        groups[group] += e.device_time_total / 1e3 / k_steps
+    if engine.cfg.moe_experts:
+        # the experts' products run under MoEMLP's "moe_experts" range
+        groups["expert_gemm"] = span_device_ms(
+            prof, "moe_experts", gemm_kernel) / k_steps
+        groups["gemm"] -= groups["expert_gemm"]
     return start.elapsed_time(end) / k_steps, groups
 
 
@@ -1466,21 +1546,16 @@ def step_groups(prof, impl: str) -> tuple:
     """Device ms of one profiled step by group (the attention kernels of
     ``impl``, cuBLAS GEMMs, the optimizer, the rest), the attention
     kernels' (ms, launches) each, and the top kernels.  Kernels are
-    grouped by name; the optimizer's time is that of the kernels its
-    profiler range (``train/step.py``) launched, on the CPU side of the
-    trace."""
-    from torch.autograd import DeviceType
+    grouped by name; the optimizer's time is that of the kernels inside
+    its profiler range's span (``train/step.py``).  With experts, the
+    GEMMs of their forward and of remat's recompute of it (MoEMLP's
+    ``moe_experts`` range) stand apart from the other GEMMs, among which
+    their gradients' stay."""
     attention = {n: [0.0, 0] for n in ("fwd", "bwd_dq", "bwd_dkv")}
     by_name = {impl: 0.0, "gemm": 0.0, "rest": 0.0}
-    optimizer = 0.0
+    optimizer = span_device_ms(prof, "optimizer")
     kernels: dict = {}
-    for e in prof.events():
-        if e.name == "optimizer":
-            if e.device_type == DeviceType.CPU:
-                optimizer += e.device_time_total / 1e3
-            continue
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in kernel_events(prof):
         key, ms = e.name.lower(), e.device_time_total / 1e3
         k = kernels.setdefault(e.name[:80], [0.0, 0])
         k[0] += ms
@@ -1491,8 +1566,7 @@ def step_groups(prof, impl: str) -> tuple:
                 a[1] += 1
         if f"{impl}_" in key:
             by_name[impl] += ms
-        elif "nvjet" in key or "gemm" in key or "splitk" in key \
-                or "cutlass" in key:
+        elif gemm_kernel(key):
             by_name["gemm"] += ms
         else:
             by_name["rest"] += ms
@@ -1502,7 +1576,25 @@ def step_groups(prof, impl: str) -> tuple:
               "optimizer": optimizer,
               # the optimizer launches no GEMM or attention kernel
               "other": by_name["rest"] - optimizer}
+    experts = span_device_ms(prof, "moe_experts", gemm_kernel)
+    if experts:
+        groups.update(expert_gemm_fwd=experts,
+                      gemm=by_name["gemm"] - experts)
     return groups, attention, top
+
+
+def active_params(cfg) -> int:
+    """Parameters one token's forward multiplies through: bench.py's
+    ``num_params()`` (``6N``) for a dense model.  With experts,
+    ``num_params()`` counts one expert's MLP and no router, so they are
+    counted here: attention, top_k experts and the router per layer, and
+    the head (the embedding lookup multiplies nothing)."""
+    if not cfg.moe_experts:
+        return cfg.num_params()
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+             + cfg.moe_top_k * 3 * d * cfg.d_ff + d * cfg.moe_experts)
+    return cfg.n_layers * layer + cfg.vocab_size * d
 
 
 def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
@@ -1596,6 +1688,12 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
+    aux_losses = [float(m["moe_aux_loss"]) for m in metrics
+                  if "moe_aux_loss" in m]
+    check(len(aux_losses) == (len(metrics) if cfg.moe_experts else 0)
+          and all(math.isfinite(a) and a > 0 for a in aux_losses),
+          f"MoE aux losses {aux_losses}: wanted one per step, finite and "
+          "positive")
 
     L = cfg.n_layers
     expected = dict.fromkeys(kernels, 0)
@@ -1618,9 +1716,10 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
 
     step_s = wall / steps
     tokens_s = batch * seq / step_s
-    flops_per_token = 6 * cfg.num_params() + 12 * L * cfg.d_model * seq
+    flops_per_token = 6 * active_params(cfg) + 12 * L * cfg.d_model * seq
     out = {"model": name, "attention_impl": impl,
-           "params": cfg.num_params(), "n_layers": L,
+           "params": sum(p.numel() for p in model.parameters()),
+           "active_params": active_params(cfg), "n_layers": L,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
            "remat_policy": cfg.remat_policy, "optimizer": optimizer,
@@ -1628,9 +1727,11 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
            "param_cast": str(param_cast), "warmup_steps": 1 + warmup,
            "steps": steps, "optimizer_state_bytes": opt_bytes,
            "parity": parity, "losses": losses, "grad_norms": grad_norms,
+           "moe_aux_losses": aux_losses,
            "launches": launches, "expected_launches": expected,
            "step_ms": step_s * 1e3, "tokens_s": tokens_s,
            "flops_per_token": flops_per_token,
+           "flops_per_token_formula": "6 * active_params + 12 * L * d * S",
            "mfu": flops_per_token * tokens_s / BF16_FLOPS,
            "peak_mem_gb": peak_gb, "step_device_ms": groups,
            "attention_device_ms_calls": attention,
@@ -1712,6 +1813,142 @@ def gptj_phase(dev) -> dict:
     out["serve"], _, _ = slice_phase(dev, model, "gptj-6b", n_requests=4,
                                      new=(16, 32), num_slots=4)
     return out
+
+
+def teacher_forced_moe(engine, prompt, tokens) -> dict:
+    """The teacher-forced check for a model with experts, on the dense
+    cache path (no paged kernel): the prompt prefilled padded as the
+    engine pads it (its bucket, pad id 0), then the generated tokens fed
+    one at a time (one token per row: capacity 1, nothing dropped).  A
+    prefill's drops depend on its window, so one window over prompt +
+    tokens (``teacher_forced``) would route them otherwise than the
+    engine did.  Also counts the (token, choice) pairs the prefill
+    dropped, over its whole window and over the prompt's own tokens."""
+    import torch
+    from ray_tpu_torch.models.generate import init_dense_cache
+    cfg, dev, n = engine.cfg, engine.device, len(prompt)
+    bucket = engine._bucket(n)
+    cache = init_dense_cache(cfg, 1, device=dev,
+                             seq_len=max(bucket, n + len(tokens)))
+    dropped = []
+
+    def count(moe, args, _out):
+        x = args[0]
+        _, _, _, pos = moe.route(x)
+        over = pos >= moe.capacity(x.shape[1])
+        dropped.append((int(over.sum()), int(over[:, :n].sum())))
+    toks = torch.zeros(1, bucket, dtype=torch.int32, device=dev)
+    toks[0, :n] = torch.tensor(prompt, device=dev)
+    pos = torch.arange(bucket, device=dev)[None]
+    hooks = [blk.moe.register_forward_hook(count)
+             for blk in engine.model.blocks]
+    try:
+        with torch.no_grad():
+            logits = [engine.model(toks, pos, kv_cache=cache)[0, n - 1]]
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for i, t in enumerate(tokens[:-1]):
+            logits.append(engine.model(
+                torch.tensor([[t]], dtype=torch.int32, device=dev),
+                torch.tensor([[n + i]], device=dev), kv_cache=cache)[0, -1])
+    pairs = cfg.moe_top_k * cfg.n_layers
+    return {**forced_gaps(torch.stack(logits), tokens),
+            "bucket": bucket, "window_pairs": bucket * pairs,
+            "window_dropped": sum(d[0] for d in dropped),
+            "prompt_pairs": n * pairs,
+            "prompt_dropped": sum(d[1] for d in dropped)}
+
+
+def moe_slice_phase(dev) -> dict:
+    """mixtral-8x7b at full width (8 experts of d_ff 14336, top-2,
+    capacity 1.25, GQA 32/8), depth MOE_SERVE_LAYERS, random bf16
+    weights from the seed, served by the paged engine and then by the
+    dense one with the slice phase's settings and 16 requests: every
+    request completes; K4 launches n_layers x decode steps on the paged
+    engine and never on the dense one; every greedy request passes the
+    teacher-forced check (``teacher_forced_moe``).  Reports decode
+    tokens/s, TTFT, decode step ms (wall; device ms by group, the
+    experts' GEMMs apart), the busy share, peak memory and the share of
+    (token, choice) pairs the prefills dropped."""
+    import torch
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    model, init_s = make_model(dev, "mixtral-8x7b",
+                               n_layers=MOE_SERVE_LAYERS)
+    cfg = model.cfg
+    reqs = make_requests(cfg.vocab_size)
+    greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0]
+    out = {"model": "mixtral-8x7b", "n_layers": cfg.n_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+           "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "num_slots": 8, "max_seq_len": 1024, "block_size": 16,
+           "page_size": 64, "requests": len(reqs), "init_s": init_s}
+    for mode in ("paged", "dense"):
+        paged = mode == "paged"
+        engine = LLMEngine(cfg, model, paged=paged, num_slots=8,
+                           page_size=64, max_seq_len=1024, block_size=16,
+                           top_k=50, seed=SEED, device=dev)
+        try:
+            t0 = time.perf_counter()
+            engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            paged_attention_cuda.launches = 0
+            results, _, wall = serve(engine, reqs)
+            launches = paged_attention_cuda.launches
+            steps = engine.stats.steps
+            check_results(reqs, results, cfg.vocab_size)
+            want = cfg.n_layers * steps if paged else 0
+            check(launches == want and (launches > 0) == paged,
+                  f"{mode}: paged kernel launches {launches}, wanted "
+                  f"{want} (n_layers x decode steps {steps} when paged)")
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            forced = [teacher_forced_moe(engine, reqs[i]["prompt"],
+                                         results[i].tokens)
+                      for i in greedy]
+            step_ms, step_device = decode_step(engine)
+        finally:
+            engine.close()
+        window = sum(f["window_pairs"] for f in forced)
+        prompt = sum(f["prompt_pairs"] for f in forced)
+        out[mode] = {
+            "paged_kernel_launches": launches,
+            **serving_metrics(engine, results, wall, 8),
+            "decode_step_ms": step_ms, "decode_step_device_ms": step_device,
+            "device_busy_share": sum(step_device.values()) / step_ms,
+            "peak_mem_gb": peak_gb, "warmup_s": warm_s,
+            "prefill_drop_share": sum(f["window_dropped"] for f in forced)
+            / window,
+            "prompt_drop_share": sum(f["prompt_dropped"] for f in forced)
+            / prompt,
+            "teacher_forced": forced}
+        check_forced(forced)
+    return out
+
+
+def moe_train_phase(dev) -> dict:
+    """mixtral-8x7b at full width, depth MOE_TRAIN_LAYERS, trained for
+    MOE_TRAIN_STEPS steps after the parity step: Adafactor (warmup 10 /
+    decay 1000), remat "dots", the dense lm_loss_fn head, attention
+    "flash", batch 8 x 1024, under the train phase's gates (its first
+    step against the plain attention's, losses falling, the MoE aux loss
+    finite and positive, 2 K1, 1 K2 and 1 K3 launches per layer and
+    step); the Adafactor state within 1 KB of JAX's
+    (MIXTRAL_ADAFACTOR_STATE_BYTES)."""
+    res = train_phase(dev, name="mixtral-8x7b", batch=8, seq=1024,
+                      steps=MOE_TRAIN_STEPS, n_layers=MOE_TRAIN_LAYERS,
+                      optimizer="adafactor")
+    got = res["optimizer_state_bytes"]
+    check(abs(got - MIXTRAL_ADAFACTOR_STATE_BYTES) <= 1024,
+          f"Adafactor state {got} B, JAX's {MIXTRAL_ADAFACTOR_STATE_BYTES} "
+          "B: the statistics are not grouped as the JAX tree's leaves")
+    return res
 
 
 def loss_check(dev) -> dict:
@@ -1834,6 +2071,14 @@ def main() -> int:
     emit({"phase": "gptj", **gptj})
     torch.cuda.empty_cache()
 
+    moe_slice = moe_slice_phase(dev)
+    emit({"phase": "moe_slice", **moe_slice})
+    torch.cuda.empty_cache()
+
+    moe_train = moe_train_phase(dev)
+    emit({"phase": "moe_train", **moe_train})
+    torch.cuda.empty_cache()
+
     loss = loss_check(dev)
     emit({"phase": "loss", **loss})
 
@@ -1854,7 +2099,9 @@ def main() -> int:
             "dense_slice": dense["paged_kernel_launches"],
             "prefix_cache": prefix["with_cache"]["paged_kernel_launches"],
             "handoff_import":
-                prefix["handoff"]["import_paged_kernel_launches"]},
+                prefix["handoff"]["import_paged_kernel_launches"],
+            "moe_slice": moe_slice["paged"]["paged_kernel_launches"],
+            "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"]},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -1882,6 +2129,10 @@ def main() -> int:
                 "fp32_hd256": {key: phase["fp32_hd256"][kind][key]
                                for key in ("ms", "bound_ms", "tflop_s",
                                            "plain_ms", "library_ms")}})
+            rows[-1]["launches_by_path"] = {
+                "train" if run is train else "splash_train":
+                    run["launches"][kind],
+                "moe_train": moe_train["launches"][kind]}
             if kind in lean["kernels_at_shape"]:
                 rows[-1]["lean_train"] = {
                     "launches": lean["launches"][kind],
@@ -1903,7 +2154,8 @@ def main() -> int:
         {"device": device, "kernel": kern, "slice": sl,
          "dense_slice": dense, "prefix_handoff": prefix, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
-         "lean_train": lean, "gptj": gptj, "loss": loss, **kernels},
+         "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
+         "moe_train": moe_train, "loss": loss, **kernels},
         indent=1))
     emit(kernels)
     print(smi_line(), flush=True)

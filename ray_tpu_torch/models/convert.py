@@ -12,6 +12,9 @@ The flax tree stacks scanned layers on a leading axis:
   blocks/{attn_norm,mlp_norm}/scale    [L, d]
   blocks/mlp/{w_gate,w_up}/kernel      [L, d, d_ff]
   blocks/mlp/w_down/kernel             [L, d_ff, d]
+  blocks/moe/router/kernel             [L, d, E]      (in place of mlp
+  blocks/moe/{w_gate,w_up}             [L, E, d, d_ff] with moe_experts)
+  blocks/moe/w_down                    [L, E, d_ff, d]
   embed                                [V, d]
   final_norm/scale                     [d]
   lm_head/kernel                       [d, V]   (absent when tied)
@@ -23,7 +26,8 @@ under ``blocks_tail`` (unscanned: ``blocks_tai_{j}``, flax's
 ``name[:-1]``), layer ``remat_layers + j`` at index ``j``.  A decode-mode
 init never splits its stack, so the tail is read only where the tree
 holds one.
-A flax kernel is [in, out]; ``nn.Linear`` stores [out, in].
+A flax kernel is [in, out]; ``nn.Linear`` stores [out, in].  The
+experts' tensors keep the flax layout in the port (``ops/moe.py``).
 
 ``jax_leaves`` lists that tree's leaves for a config, each with the
 port parameters that make it up.  ``params_from_jax`` reads the tree
@@ -88,22 +92,29 @@ def jax_leaves(cfg: TransformerConfig,
     parameters that make it up.  ``split_tail``: whether the tree splits
     its stack for partial remat; by default as the training model does
     (a decode-mode model never splits it)."""
-    d, h, kvh, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    d, h, kvh, hd, f, e = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cfg.d_ff, cfg.moe_experts)
+    ffn = ({("moe", "router", "kernel"): (d, e),
+            ("moe", "w_gate"): (e, d, f),
+            ("moe", "w_up"): (e, d, f),
+            ("moe", "w_down"): (e, f, d)} if e else
+           {("mlp", "w_gate", "kernel"): (d, f),
+            ("mlp", "w_up", "kernel"): (d, f),
+            ("mlp", "w_down", "kernel"): (f, d)})
     layer = {("attn", "wq", "kernel"): (d, h, hd),
              ("attn", "wk", "kernel"): (d, kvh, hd),
              ("attn", "wv", "kernel"): (d, kvh, hd),
              ("attn", "wo", "kernel"): (h * hd, d),
              ("attn_norm", "scale"): (d,),
-             ("mlp", "w_gate", "kernel"): (d, f),
-             ("mlp", "w_up", "kernel"): (d, f),
-             ("mlp", "w_down", "kernel"): (f, d),
+             **ffn,
              ("mlp_norm", "scale"): (d,)}
 
     def port_name(i: int, sub: Tuple[str, ...]) -> str:
+        # a flax kernel is the .weight of its Dense; the experts' leaves
+        # are port parameters of the same name and layout
         if sub[-1] == "kernel":
-            return f"blocks.{i}.{sub[0]}.{sub[1]}.weight"
-        return f"blocks.{i}.{sub[0]}.scale"
+            sub = sub[:-1] + ("weight",)
+        return f"blocks.{i}." + ".".join(sub)
 
     if split_tail is None:
         split_tail = _split_tail(cfg)
@@ -157,9 +168,9 @@ def init_weights(model: torch.nn.Module,
                  generator: Optional[torch.Generator] = None) -> None:
     """Random weights in place, with the JAX model's distributions:
     lecun-normal (truncated at two standard deviations, as flax draws it)
-    for every dense kernel, normal(0.02) for ``embed``, ones for norm
-    scales.  Values are drawn in fp32 on the parameters' device and then
-    cast, one parameter at a time."""
+    for every dense kernel and expert tensor, normal(0.02) for ``embed``,
+    ones for norm scales.  Values are drawn in fp32 on the parameters'
+    device and then cast, one parameter at a time."""
     for name, param in model.named_parameters():
         if name.endswith("scale"):
             param.fill_(1.0)
@@ -169,7 +180,10 @@ def init_weights(model: torch.nn.Module,
         if name == "embed":
             tmp.normal_(0.0, 0.02, generator=generator)
         else:
-            fan_in = param.shape[1]      # nn.Linear weight is [out, in]
+            # an nn.Linear weight is [out, in]; flax's lecun_normal over
+            # an expert tensor [E, in, out] counts E as receptive field
+            fan_in = (param.shape[1] if param.dim() == 2
+                      else math.prod(param.shape[:-1]))
             # flax's truncated_normal variance scaling divides by the
             # std of a standard normal truncated to [-2, 2]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

@@ -23,6 +23,11 @@ attributes; here the caller's arguments choose it:
     ``ops/attention.py`` with ``cfg.attention_impl``, each block under
     ``torch.utils.checkpoint`` per ``cfg.remat``/``remat_policy``/
     ``remat_layers`` when gradients are on.
+
+Blocks of a config with ``moe_experts`` hold ``ops/moe.py``'s ``MoEMLP``
+in place of the MLP.  Its aux loss reaches the caller only with
+``return_aux`` (the loss functions of ``train/step.py``); the decode
+paths drop it, as the reference's sow outside a mutable collection does.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ from torch.utils.checkpoint import (checkpoint,
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.configs import TransformerConfig
 from ray_tpu_torch.ops.attention import attention, dense_attention
-from ray_tpu_torch.ops.layers import apply_rope, rms_norm, rope_frequencies
+from ray_tpu_torch.ops.layers import (Dense, apply_rope, rms_norm,
+                                      rope_frequencies)
+from ray_tpu_torch.ops.moe import MoEMLP
 from ray_tpu_torch.ops.paged_attention import paged_attention
 
 _aten = torch.ops.aten
@@ -54,28 +61,6 @@ _SAVED_OPS = {
                  _aten.baddbmm.default],
 }
 REMAT_POLICIES = ("nothing", "block_outs", "dots", "dots_all")
-
-
-class Dense(nn.Linear):
-    """A bias-free projection with flax ``DenseGeneral(dtype,
-    param_dtype)`` semantics: ``weight`` [out, in] is stored in the
-    parameter dtype, and each call casts it and the input to
-    ``compute_dtype``."""
-
-    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype,
-                 *, device=None, dtype=None):
-        super().__init__(d_in, d_out, bias=False, device=device, dtype=dtype)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt, w = self.compute_dtype, self.weight
-        # the dtype tests keep a model already in compute_dtype (serving)
-        # free of per-call cast dispatches
-        if w.dtype != dt:
-            w = w.to(dt)
-        if x.dtype != dt:
-            x = x.to(dt)
-        return F.linear(x, w)
 
 
 class RMSNorm(nn.Module):
@@ -221,16 +206,24 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention, then the SwiGLU ``mlp`` or, when ``cfg.moe_experts``,
+    the mixture of experts ``moe`` (``ops/moe.py``).  ``forward``
+    returns (x, the MoE aux loss or None)."""
+
     def __init__(self, cfg: TransformerConfig, *, device=None, dtype=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet: ROADMAP.md Queue 1 item 4")
         kw = dict(device=device, dtype=dtype)
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         self.attn = Attention(cfg, **kw)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.mlp = MLP(cfg, **kw)
+        self.moe = (MoEMLP(cfg.d_model, cfg.moe_experts, cfg.d_ff,
+                           top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           aux_loss_coef=cfg.moe_aux_coef,
+                           compute_dtype=cfg.dtype, **kw)
+                    if cfg.moe_experts else None)
+        if self.moe is None:
+            self.mlp = MLP(cfg, **kw)
 
     def forward(self, x, cos, sin, positions=None, block_tables=None,
                 kv=None, prefix_attend: bool = False):
@@ -244,7 +237,11 @@ class Block(nn.Module):
                              block_tables, kv, prefix_attend)
 
     def mlp_half(self, x):
-        return x + self.mlp(self.mlp_norm(x))
+        y = self.mlp_norm(x)
+        if self.moe is None:
+            return x + self.mlp(y), None
+        y, aux = self.moe(y)
+        return x + y, aux
 
 
 def remat_block(blk: Block, policy: str, x, *args):
@@ -306,9 +303,12 @@ class GPT(nn.Module):
     def forward(self, tokens, positions=None, *, return_hidden: bool = False,
                 block_tables=None, kv_pools: Optional[List] = None,
                 kv_cache: Optional[List] = None,
-                prefix_attend: bool = False):
+                prefix_attend: bool = False, return_aux: bool = False):
         """``kv_pools`` with ``block_tables``: paged decode; ``kv_cache``:
-        dense slot decode (see the module docstring)."""
+        dense slot decode (see the module docstring).  ``return_aux``:
+        return (output, the MoE blocks' summed aux loss, None without
+        experts); it is returned and not kept on a module, so a remat
+        recompute cannot overwrite it."""
         cfg = self.cfg
         if kv_pools is not None and kv_cache is not None:
             raise ValueError("pass kv_pools (paged) or kv_cache (dense), "
@@ -322,17 +322,19 @@ class GPT(nn.Module):
                              f"{cfg.n_layers} layers")
         x = F.embedding(tokens.long(), self.embed).to(cfg.dtype)
         n_remat = self._n_remat(caches is not None)
+        aux = None
         for i, blk in enumerate(self.blocks):
             args = (self.cos, self.sin, positions, block_tables,
                     None if caches is None else caches[i], prefix_attend)
             if i < n_remat:
-                x = remat_block(blk, cfg.remat_policy, x, *args)
+                x, a = remat_block(blk, cfg.remat_policy, x, *args)
             else:
-                x = blk(x, *args)
+                x, a = blk(x, *args)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = self.final_norm(x)
-        if return_hidden:
-            return x
-        return self.head(x)
+        out = x if return_hidden else self.head(x)
+        return (out, aux) if return_aux else out
 
     def head(self, x):
         """[..., d_model] post-norm hidden -> fp32 logits [..., vocab]."""

@@ -1,5 +1,5 @@
-"""Layer primitives: RMSNorm, rotary embeddings, SwiGLU
-(counterpart of ray_tpu/ops/layers.py).
+"""Layer primitives: the bias-free projection ``Dense``, RMSNorm, rotary
+embeddings, SwiGLU (counterpart of ray_tpu/ops/layers.py).
 
 Plain tensor code: none of these is a TPU kernel in the JAX package
 (XLA fuses them there), so none is a hand-written kernel here yet.
@@ -11,6 +11,29 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Linear):
+    """A bias-free projection with flax ``DenseGeneral(dtype,
+    param_dtype)`` semantics: ``weight`` [out, in] is stored in the
+    parameter dtype, and each call casts it and the input to
+    ``compute_dtype``."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype: torch.dtype,
+                 *, device=None, dtype=None):
+        super().__init__(d_in, d_out, bias=False, device=device, dtype=dtype)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt, w = self.compute_dtype, self.weight
+        # the dtype tests keep a model already in compute_dtype (serving)
+        # free of per-call cast dispatches
+        if w.dtype != dt:
+            w = w.to(dt)
+        if x.dtype != dt:
+            x = x.to(dt)
+        return F.linear(x, w)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -31,7 +31,8 @@ The optimizer repeats optax's arithmetic, not ``torch.optim``'s:
 The optimizers run as ``_foreach`` and tensor ops, as XLA runs optax's
 on the TPU: no Pallas kernel there, so no hand-written one here.
 
-The MoE routers' aux loss (``_lm_loss_body``) waits for the MoE block.
+The loss functions add the MoE blocks' aux loss, as the reference adds
+its routers' sown values (``_lm_loss_body``).
 """
 
 from __future__ import annotations
@@ -53,7 +54,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _decay_mask(params: Params) -> Dict[str, bool]:
     """Weight-decay the projection weights and ``embed``, by parameter
-    name; norm scales are not decayed."""
+    name, as the reference decays the flax leaves named ``kernel`` and
+    ``embed``: a ``.weight`` is a flax kernel (the MoE router's too),
+    while norm scales and the experts' ``w_gate`` / ``w_up`` / ``w_down``
+    are not decayed."""
     return {n: n == "embed" or n.endswith(".weight") for n in params}
 
 
@@ -387,25 +391,34 @@ def cast_params_once(model: nn.Module, dtype=torch.bfloat16) -> Params:
 
 
 def _apply(model: nn.Module, inputs, param_cast, **kw):
-    """(model output, the parameters it ran with)."""
+    """(model output, MoE aux loss or None, the parameters it ran
+    with)."""
+    kw["return_aux"] = True
     if param_cast is None:
-        return model(inputs, **kw), dict(model.named_parameters())
+        out, aux = model(inputs, **kw)
+        return out, aux, dict(model.named_parameters())
     params = cast_params_once(model, param_cast)
-    return torch.func.functional_call(model, params, (inputs,), kw), params
+    out, aux = torch.func.functional_call(model, params, (inputs,), kw)
+    return out, aux, params
 
 
 def _lm_loss_body(model: nn.Module, batch: Dict[str, Any],
                   head: Callable) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Shared next-token plumbing: slice tokens and mask, then run
-    ``head(inputs, mask, targets) -> (loss, denom)``."""
+    """Shared next-token plumbing: slice tokens and mask, run
+    ``head(inputs, mask, targets) -> (loss, denom, aux)``, and add the
+    MoE blocks' aux loss (None without experts) to the loss."""
     dev = model.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)[:, 1:].float()
-    loss, denom = head(inputs, mask, targets)
-    return loss, {"loss": loss, "tokens": denom}
+    loss, denom, aux = head(inputs, mask, targets)
+    metrics = {"loss": loss, "tokens": denom}
+    if aux is not None:
+        loss = loss + aux
+        metrics.update(loss=loss, moe_aux_loss=aux)
+    return loss, metrics
 
 
 def lm_loss_fn(model: nn.Module, batch: Dict[str, Any], z_loss: float = 0.0,
@@ -416,8 +429,8 @@ def lm_loss_fn(model: nn.Module, batch: Dict[str, Any], z_loss: float = 0.0,
     from ray_tpu_torch.ops.losses import softmax_cross_entropy
 
     def head(inputs, mask, targets):
-        logits, _ = _apply(model, inputs, param_cast)
-        return softmax_cross_entropy(logits, targets, mask, z_loss)
+        logits, aux, _ = _apply(model, inputs, param_cast)
+        return (*softmax_cross_entropy(logits, targets, mask, z_loss), aux)
 
     return _lm_loss_body(model, batch, head)
 
@@ -438,8 +451,8 @@ def lm_loss_chunked_fn(model: nn.Module, batch: Dict[str, Any],
     from ray_tpu_torch.ops.losses import chunked_lm_loss
 
     def head(inputs, mask, targets):
-        hidden, params = _apply(model, inputs, param_cast,
-                                return_hidden=True)
+        hidden, aux, params = _apply(model, inputs, param_cast,
+                                     return_hidden=True)
         if head_weight is not None:
             weight, transpose = head_weight(params)
         elif "lm_head.weight" in params:
@@ -451,8 +464,9 @@ def lm_loss_chunked_fn(model: nn.Module, batch: Dict[str, Any],
                 "lm_loss_chunked_fn could not find the projection head "
                 "(no 'lm_head.weight' or 'embed' parameter); pass "
                 "head_weight=")
-        return chunked_lm_loss(hidden, weight, targets, mask, z_loss,
-                               chunk_size, transpose_weight=transpose)
+        return (*chunked_lm_loss(hidden, weight, targets, mask, z_loss,
+                                 chunk_size, transpose_weight=transpose),
+                aux)
 
     return _lm_loss_body(model, batch, head)
 
@@ -476,7 +490,8 @@ def make_train(model: nn.Module,
     current parameters (initialise or load them first).
     ``step_fn(state, batch) -> (state, metrics)`` takes one step in place;
     metrics hold 0-d tensors ``loss``, ``tokens`` and ``grad_norm`` (the
-    norm of the raw gradients, before clipping), read without a host sync.
+    norm of the raw gradients, before clipping), and ``moe_aux_loss`` for
+    a model with experts, read without a host sync.
     ``z_loss`` defaults to ``model.cfg.z_loss``.
     """
     tx = (optimizer or OptimizerConfig()).make(getattr(model, "cfg", None))

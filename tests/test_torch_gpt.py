@@ -126,15 +126,11 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         LLMEngine(cfg, {})
 
 
-@pytest.mark.parametrize("path", ["ring", "moe", "ulysses"])
+@pytest.mark.parametrize("path", ["ring", "ulysses"])
 def test_unported_paths_raise_and_name_the_roadmap(path):
     tokens = torch.zeros(1, 4, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "moe":
-            GPT(get_config("tiny-moe"), device="cpu")
-        else:
-            GPT(get_config("tiny", attention_impl=path),
-                device="cpu")(tokens)
+        GPT(get_config("tiny", attention_impl=path), device="cpu")(tokens)
 
 
 def test_bf16_compute_over_fp32_params_matches_jax():

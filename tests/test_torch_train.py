@@ -184,12 +184,13 @@ def test_adafactor_steps_match_make_sharded_train(case):
     _steps_match_make_sharded_train(over, opt)
 
 
-def _steps_match_make_sharded_train(over, opt):
-    """Three updates of make_train against make_sharded_train: losses and
-    gradient norms at each call within RTOL, the parameters after within
-    PARAM_MAX / PARAM_MEAN, and moved by the steps."""
-    jcfg = jax_config("tiny", attention_impl="xla", **over)
-    tcfg = get_config("tiny", attention_impl="flash", **over)
+def _steps_match_make_sharded_train(over, opt, preset="tiny"):
+    """Three updates of make_train against make_sharded_train: losses,
+    gradient norms and (with experts) MoE aux losses at each call within
+    RTOL, the parameters after within PARAM_MAX / PARAM_MEAN, and moved
+    by the steps."""
+    jcfg = jax_config(preset, attention_impl="xla", **over)
+    tcfg = get_config(preset, attention_impl="flash", **over)
     batch = _batch(tcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     mesh = build_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
@@ -214,6 +215,10 @@ def _steps_match_make_sharded_train(over, opt):
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(m["grad_norm"]), rtol=RTOL)
         assert float(tm["tokens"]) == float(m["tokens"])
+        assert tm.keys() == m.keys()
+        if "moe_aux_loss" in m:
+            np.testing.assert_allclose(float(tm["moe_aux_loss"]),
+                                       float(m["moe_aux_loss"]), rtol=RTOL)
     assert tstate.step == 3 * opt.get("accum_steps", 1)
     want = params_from_jax(tree_of(state), tcfg)
     moved = 0.0
