@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100
-and hold its CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving and training paths (the GPT, MoE,
+encoder and vision families) on one NVIDIA H100 and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -38,8 +39,12 @@ package.  Phases, one JSON line each:
               second as a colocated submit does (tokens equal).
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
-              (16 x 1024, 12 heads of 64, causal, bf16) and at gptj-6b's
-              (2 x 1024, 16 heads of 256), at a GQA 32/8 head_dim-128
+              (16 x 1024, 12 heads of 64, causal, bf16), at gptj-6b's
+              (2 x 1024, 16 heads of 256), at ViT-B/16's (128 x 196,
+              non-causal), gpt-large's and mixtral's (all timed), at
+              BERT's (16 x 512, non-causal), T5's cross-attention (16 x
+              q 128 over kv 512, non-causal) and T5's decoder (16 x 128,
+              causal), at a GQA 32/8 head_dim-128
               shape, at head_dim-256 GQA / ragged / full shapes, fp32 at
               head_dim 256 (all three kernels, timed), at
               fp32 / full / ragged shapes, with
@@ -99,9 +104,32 @@ package.  Phases, one JSON line each:
               positive), the optimizer state within 1 KB of JAX's; MFU
               from the active parameters (attention, top-2 experts,
               router, head).
- 11. loss     chunked_lm_loss on bf16 tensors of the card against the
+ 11. vision_train  make_vision_train at full width, random weights and
+              a fixed batch from the seed: ViT-B/16 (224 px, 1000
+              classes, batch 128, AdamW), its first step through the
+              plain attention against one through the kernels from the
+              same weights, then 10 kernel steps under the train phase's
+              gates (12 K1, K2 and K3 launches per step, every other
+              kernel at 0); ResNet-50 at benchmarks/vision_perf.py's two
+              settings (32 px / 10 classes, batch 1024; 224 px / 1000
+              classes, batch 256) for 10 steps each, no kernel launched,
+              the BatchNorm statistics finite and moved; img/s, step ms,
+              peak memory, device time by group (GEMMs and convolutions,
+              attention, the optimizer, the rest).
+ 12. encoder_train  BERT and T5 at gpt-small's widths (remat "dots"),
+              through make_train with mlm_loss_fn (batch 16 x 512,
+              masked_batch corruption) and seq2seq_loss_fn (encoder 512,
+              decoder 128, batch 16) under the same gates; K1-K3 calls
+              by shape, so T5's cross-attention (q 128 over kv 512) shows;
+              a BERT forward with a padding mask launches no kernel; T5's
+              greedy_decode of 32 tokens on 4 prompts, from fresh random
+              weights whose query and key projections are scaled by 3,
+              equals a teacher-forced forward's argmax token for token,
+              and every row holds more than one distinct token.
+ 13. loss     chunked_lm_loss on bf16 tensors of the card against the
               same call on the CPU.
- 12. kernels  one line listing every kernel of the port.
+ 14. kernels  one line listing every kernel of the port, with its
+              launches on each training and serving path.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -631,10 +659,12 @@ def forced_gaps(logits, tokens) -> dict:
 
 
 def gemm_kernel(name: str) -> bool:
-    """Whether a kernel's name is that of a cuBLAS / CUTLASS GEMM."""
+    """Whether a kernel's name is that of a cuBLAS / CUTLASS GEMM or a
+    cuDNN convolution (forward, data and weight gradients)."""
     key = name.lower()
     return ("nvjet" in key or "gemm" in key or "splitk" in key
-            or "cutlass" in key)
+            or "cutlass" in key or "fprop" in key or "dgrad" in key
+            or "wgrad" in key or ("conv" in key and "convert" not in key))
 
 
 # the profiler ranges the port opens (``train/step.py``, ``ops/moe.py``):
@@ -1480,7 +1510,9 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
 
 def flash_phase(dev) -> dict:
     """The flash kernels at the training slice's shapes and at gptj-6b's
-    (16 heads of 256, batch 2 x 1024), both timed; at a GQA 32/8
+    (16 heads of 256, batch 2 x 1024), ViT-B/16's (VIT_BATCH x 196, 12
+    heads of 64, non-causal), gpt-large's and mixtral's, all timed; at
+    BERT's and T5's shapes (PATH_SHAPES), untimed; at a GQA 32/8
     head_dim-128 shape with S not a multiple of the 64-row tiles, at fp32
     / non-causal / q_len != kv_len shapes, and at head_dim 256 (GQA and
     ragged, non-causal, low logits, and fp32)."""
@@ -1491,6 +1523,24 @@ def flash_phase(dev) -> dict:
                               True, timed=True)
     at_hd256 = attention_case(dev, gen, "flash", 2, 1024, 16, 16, 256, bf16,
                               True, timed=True)
+    torch.cuda.empty_cache()
+    # the shapes of the other training paths, timed: ViT-B/16's 196
+    # patches (non-causal, 3 x 64 + 4 rows), gpt-large's lean run and
+    # mixtral's GQA 32/8 at head_dim 128; untimed: BERT's, T5's
+    # cross-attention (q DECODER_SEQ over kv ENCODER_SEQ, non-causal) and
+    # T5's decoder self-attention
+    at_path = {label: attention_case(dev, gen, "flash", *shape, bf16,
+                                     causal, skv, timed=timed)
+               for label, shape, causal, skv, timed in (
+                   ("vit", (VIT_BATCH, 196, 12, 12, 64), False, None, True),
+                   ("large", (10, 1024, 20, 20, 64), True, None, True),
+                   ("mixtral", (8, 1024, 32, 8, 128), True, None, True),
+                   ("bert", (ENCODER_BATCH, ENCODER_SEQ, 12, 12, 64), False,
+                    None, False),
+                   ("t5_cross", (ENCODER_BATCH, DECODER_SEQ, 12, 12, 64),
+                    False, ENCODER_SEQ, False),
+                   ("t5_self", (ENCODER_BATCH, DECODER_SEQ, 12, 12, 64),
+                    True, None, False))}
     torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "flash", *c) for c in (
         (2, 2000, 32, 8, 128, bf16, True),
@@ -1506,6 +1556,7 @@ def flash_phase(dev) -> dict:
         (1, 256, 4, 4, 256, bf16, False, 320),
         (2, 256, 4, 2, 256, bf16, True, None, False, False, True))]
     return {"slice_shape": at_slice, "hd256_shape": at_hd256,
+            **{f"{label}_shape": res for label, res in at_path.items()},
             "coverage": coverage,
             "fp32_hd256": fp32_wide_case(dev, gen, "flash"),
             "tc_kernel": tc_usage("flash")}
@@ -1606,19 +1657,19 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     """bench.py's training runs on the port with ``attention_impl=impl``:
     make_train over GPT at full width and depth (depth cut to
     ``n_layers`` where given), one fixed batch, the dense lm_loss_fn
-    head or (``chunked``) lm_loss_chunked_fn with ``param_cast``.  Its
-    first step must agree with one step of ``ref_impl`` from the same
-    weights and batch; ``warmup`` more untimed steps, then ``steps``
-    timed ones, one profiled, and ``nocast_steps`` timed ones with the
-    chunked head's cast left inside the projections."""
+    head or (``chunked``) lm_loss_chunked_fn with ``param_cast``, under
+    ``family_train``'s gates: its first step must agree with one step of
+    ``ref_impl`` from the same weights and batch; ``warmup`` more untimed
+    steps, then ``steps`` timed ones (K1 launched twice per layer and
+    step under remat, K2 and K3 once), one profiled, and
+    ``nocast_steps`` timed ones with the chunked head's cast left inside
+    the projections."""
     import functools
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ray_tpu_torch.models.configs import get_config
-    from ray_tpu_torch.models.convert import init_weights
     from ray_tpu_torch.models.gpt import GPT
-    from ray_tpu_torch.ops import flash_attention, splash
     from ray_tpu_torch.train.step import (OptimizerConfig,
                                           lm_loss_chunked_fn, lm_loss_fn,
                                           make_train, state_nbytes)
@@ -1638,106 +1689,35 @@ def train_phase(dev, impl: str = "flash", ref_impl: str = "xla",
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (batch, seq + 1))).to(dev)
-    data = {"tokens": tokens}
-    model = GPT(cfg, device=dev)
-    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
-
-    # one step of the reference attention from the same weights
-    ref = GPT(get_config(name, attention_impl=ref_impl, **over), device=dev)
-    ref.load_state_dict(model.state_dict())
-    init_r, step_r = make_train(ref, opt, loss_fn(param_cast))
-    _, mr = step_r(init_r(), data)
-    ref_m = {k: float(v) for k, v in mr.items()}
-    del ref, init_r, step_r, mr
-    torch.cuda.empty_cache()
-
-    init_fn, step_fn = make_train(model, opt, loss_fn(param_cast))
-    state = init_fn()
-    opt_bytes = state_nbytes(state.opt_state)
-    state, m1 = step_fn(state, data)
-    first = {k: float(v) for k, v in m1.items()}
-    parity = {"reference": ref_impl, ref_impl: ref_m, impl: first,
-              "loss_rel": abs(first["loss"] - ref_m["loss"])
-              / abs(ref_m["loss"]),
-              "grad_norm_rel": abs(first["grad_norm"] - ref_m["grad_norm"])
-              / abs(ref_m["grad_norm"])}
-    check(parity["loss_rel"] <= LOSS_RTOL
-          and parity["grad_norm_rel"] <= GRAD_NORM_RTOL,
-          f"the {impl} step disagrees with the {ref_impl} step: {parity}")
-    for _ in range(warmup):
-        state, _ = step_fn(state, data)
-
-    # every attention kernel's counter: those of the other family must
-    # stay at 0 through the run
-    kernels = {f"{fam}_{n}": getattr(mod, f"{fam}_{n}_cuda")
-               for fam, mod in (("flash", flash_attention),
-                                ("splash", splash))
-               for n in ("fwd", "bwd_dq", "bwd_dkv")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for kfn in kernels.values():
-        kfn.launches = 0
-    metrics = []
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, m = step_fn(state, data)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {n: kfn.launches for n, kfn in kernels.items()}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    losses = [float(m["loss"]) for m in metrics]
-    grad_norms = [float(m["grad_norm"]) for m in metrics]
-    aux_losses = [float(m["moe_aux_loss"]) for m in metrics
-                  if "moe_aux_loss" in m]
-    check(len(aux_losses) == (len(metrics) if cfg.moe_experts else 0)
+    L = cfg.n_layers
+    res, model, state = family_train(
+        dev, name, lambda attn: GPT(get_config(name, attention_impl=attn,
+                                               **over), device=dev),
+        lambda m: make_train(m, opt, loss_fn(param_cast)),
+        {"tokens": tokens}, batch * seq,
+        {f"{impl}_fwd": L * (2 if cfg.remat else 1),
+         f"{impl}_bwd_dq": L, f"{impl}_bwd_dkv": L},
+        steps=steps, impl=impl, ref_impl=ref_impl, warmup=warmup)
+    aux_losses = res["moe_aux_losses"]
+    check(len(aux_losses) == (steps if cfg.moe_experts else 0)
           and all(math.isfinite(a) and a > 0 for a in aux_losses),
           f"MoE aux losses {aux_losses}: wanted one per step, finite and "
           "positive")
-
-    L = cfg.n_layers
-    expected = dict.fromkeys(kernels, 0)
-    expected.update({f"{impl}_fwd": steps * L * (2 if cfg.remat else 1),
-                     f"{impl}_bwd_dq": steps * L,
-                     f"{impl}_bwd_dkv": steps * L})
-    check(launches == expected,
-          f"kernel launches {launches} != expected {expected} "
-          f"({steps} steps x {L} layers, remat recomputes the forward)")
-    check(all(math.isfinite(x) for x in losses + grad_norms),
-          f"non-finite loss or grad norm: {losses} {grad_norms}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-
-    # device time of one step by kernel group
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, _ = step_fn(state, data)
-        torch.cuda.synchronize()
-    groups, attention, top = step_groups(prof, impl)
-
-    step_s = wall / steps
-    tokens_s = batch * seq / step_s
+    tokens_s = res.pop("items_per_s")
     flops_per_token = 6 * active_params(cfg) + 12 * L * cfg.d_model * seq
     out = {"model": name, "attention_impl": impl,
-           "params": sum(p.numel() for p in model.parameters()),
            "active_params": active_params(cfg), "n_layers": L,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "vocab": cfg.vocab_size, "batch": batch, "seq": seq,
            "remat_policy": cfg.remat_policy, "optimizer": optimizer,
            "loss_head": "chunked" if chunked else "dense",
            "param_cast": str(param_cast), "warmup_steps": 1 + warmup,
-           "steps": steps, "optimizer_state_bytes": opt_bytes,
-           "parity": parity, "losses": losses, "grad_norms": grad_norms,
-           "moe_aux_losses": aux_losses,
-           "launches": launches, "expected_launches": expected,
-           "step_ms": step_s * 1e3, "tokens_s": tokens_s,
-           "flops_per_token": flops_per_token,
+           "optimizer_state_bytes": state_nbytes(state.opt_state), **res,
+           "tokens_s": tokens_s, "flops_per_token": flops_per_token,
            "flops_per_token_formula": "6 * active_params + 12 * L * d * S",
-           "mfu": flops_per_token * tokens_s / BF16_FLOPS,
-           "peak_mem_gb": peak_gb, "step_device_ms": groups,
-           "attention_device_ms_calls": attention,
-           "top_kernels_ms_calls": top,
-           "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
+           "mfu": flops_per_token * tokens_s / BF16_FLOPS}
     if nocast_steps:
+        data = {"tokens": tokens}
         _, step_nocast = make_train(model, opt, loss_fn(None))
         state, _ = step_nocast(state, data)      # untimed first call
         torch.cuda.synchronize()
@@ -1951,6 +1931,381 @@ def moe_train_phase(dev) -> dict:
     return res
 
 
+# The encoder and vision families at full width (vision_train and
+# encoder_train): steps per run after the parity step, and each run's
+# batch
+FAMILY_STEPS = 10
+VIT_BATCH = 128
+# benchmarks/vision_perf.py:89-93: ResNet-50 at CIFAR-10's 32 px / 10
+# classes (batch 1024, the CIFAR stem) and at 224 px / 1000 classes
+# (batch 256)
+RESNET_RUNS = (("resnet50_cifar10", 32, 10, 1024),
+               ("resnet50_imagenet_shape", 224, 1000, 256))
+# BERT and T5 at gpt-small's widths (768, 12 layers of 12 heads, vocab
+# 50304; ray_tpu/models/configs.py:86-87): sequences of 512 (T5's
+# decoder 128), batch 16; greedy decoding of 32 tokens on 4 prompts
+ENCODER_BATCH, ENCODER_SEQ, DECODER_SEQ = 16, 512, 128
+# flash_phase's shapes of the training paths, as the kernel rows name
+# them (the first three timed)
+PATH_SHAPES = ("vit", "large", "mixtral", "bert", "t5_cross", "t5_self")
+GREEDY_PROMPTS, GREEDY_TOKENS = 4, 32
+# the greedy decode's query and key projections are scaled by this over
+# init_weights' draw (attention logits by its square), see
+# encoder_train_phase
+GREEDY_QK_SCALE = 3.0
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port by kernel name; each counts its
+    launches in ``.launches``."""
+    from ray_tpu_torch.ops import flash_attention, paged_attention, splash
+    out = {f"{fam}_{n}": getattr(mod, f"{fam}_{n}_cuda")
+           for fam, mod in (("flash", flash_attention), ("splash", splash))
+           for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    out["paged_attention"] = paged_attention.paged_attention_cuda
+    return out
+
+
+class _ShapeTally:
+    """A flash kernel wrapper that tallies its calls by (kind, q_len,
+    kv_len, causal) in ``calls`` and calls the wrapper it stands for.
+    ``launches`` is that wrapper's own counter, which the wrapper adds
+    to through the module's name for it (this object, while it stands
+    there)."""
+
+    def __init__(self, fn, kind: str, calls: dict):
+        self.fn, self.kind, self.calls = fn, kind, calls
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __call__(self, q, k, *args, **kw):
+        key = (f"{self.kind} q{q.shape[1]} kv{k.shape[1]} "
+               + ("causal" if kw["causal"] else "full"))
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return self.fn(q, k, *args, **kw)
+
+
+class FlashShapes:
+    """Within the ``with``, every flash kernel launch is tallied by
+    (kind, q_len, kv_len, causal) in ``.calls`` (``_ShapeTally`` stands
+    in ``ops.flash_attention`` for each wrapper; the launch counts stay
+    the wrappers' own)."""
+
+    def __enter__(self):
+        from ray_tpu_torch.ops import flash_attention as mod
+        self.calls, self.saved = {}, {}
+        for n in ("fwd", "bwd_dq", "bwd_dkv"):
+            name = f"flash_{n}_cuda"
+            self.saved[name] = getattr(mod, name)
+            setattr(mod, name, _ShapeTally(self.saved[name], n, self.calls))
+        return self
+
+    def __exit__(self, *exc):
+        from ray_tpu_torch.ops import flash_attention as mod
+        for name, fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def family_train(dev, label: str, build, make_step, data, items: int,
+                 expected_per_step: dict, *, steps: int = FAMILY_STEPS,
+                 impl: str = "flash", ref_impl="xla", warmup: int = 0,
+                 shapes: bool = False) -> tuple:
+    """Train one model on the card at full width: ``build(impl)`` makes it
+    (random weights from the seed are drawn here), ``make_step(model)``
+    returns its ``(init_fn, step_fn)``, ``data`` is one fixed batch of
+    ``items`` images or tokens.  The first step must agree with one step
+    of the same weights through ``ref_impl`` attention (None for a model
+    without attention): loss within LOSS_RTOL, gradient norm within
+    GRAD_NORM_RTOL.  Then ``warmup`` untimed steps and ``steps`` timed
+    ones, whose losses must be finite and fall and whose launch counts
+    must be ``expected_per_step`` x steps (every other kernel at 0); with
+    ``shapes``, the flash launches by shape (``FlashShapes``).  Then one
+    profiled step, split by ``step_groups(prof, impl)``.  Returns (the
+    run's results, the model, the train state)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ray_tpu_torch.models.convert import init_weights
+    model = build(impl)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    parity = None
+    if ref_impl is not None:
+        ref = build(ref_impl)
+        ref.load_state_dict(model.state_dict())
+        init_r, step_r = make_step(ref)
+        _, mr = step_r(init_r(), data)
+        ref_m = {k: float(v) for k, v in mr.items()}
+        del ref, init_r, step_r, mr
+        torch.cuda.empty_cache()
+    init_fn, step_fn = make_step(model)
+    state = init_fn()
+    state, m1 = step_fn(state, data)
+    first = {k: float(v) for k, v in m1.items()}
+    if ref_impl is not None:
+        parity = {"reference": ref_impl, ref_impl: ref_m, impl: first,
+                  "loss_rel": abs(first["loss"] - ref_m["loss"])
+                  / abs(ref_m["loss"]),
+                  "grad_norm_rel": abs(first["grad_norm"]
+                                       - ref_m["grad_norm"])
+                  / abs(ref_m["grad_norm"])}
+        check(parity["loss_rel"] <= LOSS_RTOL
+              and parity["grad_norm_rel"] <= GRAD_NORM_RTOL,
+              f"{label}: the {impl} step disagrees with the {ref_impl} "
+              f"step: {parity}")
+    for _ in range(warmup):
+        state, _ = step_fn(state, data)
+    kernels = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kfn in kernels.values():
+        kfn.launches = 0
+    metrics = []
+    with (FlashShapes() if shapes else contextlib.nullcontext()) as tally:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step_fn(state, data)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {n: kfn.launches for n, kfn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
+    expected = dict.fromkeys(kernels, 0)
+    expected.update({k: v * steps for k, v in expected_per_step.items()})
+    check(launches == expected,
+          f"{label}: kernel launches {launches} != expected {expected}")
+    check(all(math.isfinite(x) for x in losses + grad_norms),
+          f"{label}: non-finite loss or grad norm: {losses} {grad_norms}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: "
+                                  f"{losses}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, data)
+        torch.cuda.synchronize()
+    groups, attention, top = step_groups(prof, impl)
+    step_s = wall / steps
+    out = {"params": sum(p.numel() for p in model.parameters()),
+           "steps": steps, "parity": parity, "losses": losses,
+           "grad_norms": grad_norms,
+           "moe_aux_losses": [float(m["moe_aux_loss"]) for m in metrics
+                              if "moe_aux_loss" in m],
+           "last_metrics": {k: float(v) for k, v in metrics[-1].items()},
+           "launches": launches, "expected_launches": expected,
+           "step_ms": step_s * 1e3, "items_per_s": items / step_s,
+           "peak_mem_gb": peak_gb, "step_device_ms": groups,
+           "attention_device_ms_calls": attention,
+           "top_kernels_ms_calls": top,
+           "device_busy_share": sum(groups.values()) / (step_s * 1e3)}
+    if shapes:
+        out["flash_calls_by_shape"] = {
+            k: v // steps for k, v in sorted(tally.calls.items())}
+    return out, model, state
+
+
+def vision_train_phase(dev) -> dict:
+    """ViT-B/16 (vit.py:63; 224 px, 1000 classes, batch VIT_BATCH, AdamW
+    warmup 10 / decay 1000) through make_vision_train: its first step
+    with attention "xla" against one with "flash" from the same weights,
+    then FAMILY_STEPS flash steps, 12 K1, 12 K2 and 12 K3 launches per
+    step (no remat) and none of the other kernels.  Then ResNet-50 at
+    benchmarks/vision_perf.py's two settings (RESNET_RUNS) for
+    FAMILY_STEPS steps each under the same loss gates, no kernel
+    launched, and its BatchNorm statistics finite and moved from their
+    init (mean 0, var 1).  Images N(0, 1) and labels from the seed."""
+    import torch
+    from ray_tpu_torch.models.resnet import ResNet50
+    from ray_tpu_torch.models.vit import ViT, get_vit_config
+    from ray_tpu_torch.train.step import OptimizerConfig, make_vision_train
+    opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def images(b, px, classes):
+        return {"image": torch.randn(b, px, px, 3, generator=gen,
+                                     device=dev),
+                "label": torch.randint(0, classes, (b,), generator=gen,
+                                       device=dev)}
+
+    def make_step(model):
+        return make_vision_train(model, opt)
+
+    def build_vit(impl):
+        return ViT(get_vit_config("vit-b16", attention_impl=impl),
+                   device=dev)
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = get_vit_config("vit-b16")
+    per_step = {f"flash_{n}": cfg.n_layers
+                for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    res, vit, _ = family_train(dev, "vit-b16", build_vit, make_step,
+                               images(VIT_BATCH, 224, 1000), VIT_BATCH,
+                               per_step, shapes=True)
+    del vit
+    torch.cuda.empty_cache()
+    out["vit_b16"] = {"image_px": 224, "num_classes": 1000,
+                      "batch": VIT_BATCH, "patches": cfg.num_patches,
+                      "img_per_s": res.pop("items_per_s"), **res,
+                      "phase_s": time.perf_counter() - t0}
+    for label, px, classes, batch in RESNET_RUNS:
+        t0 = time.perf_counter()
+
+        def build_resnet(_impl, px=px, classes=classes):
+            return ResNet50(num_classes=classes, small_inputs=px <= 64,
+                            device=dev)
+
+        res, model, _ = family_train(dev, label, build_resnet, make_step,
+                                     images(batch, px, classes), batch, {},
+                                     ref_impl=None)
+        stats = dict(model.named_buffers())
+        moved = {"mean": max(float(b.abs().max()) for n, b in
+                             stats.items() if n.endswith("mean")),
+                 "var": max(float((b - 1).abs().max()) for n, b in
+                            stats.items() if n.endswith("var"))}
+        check(all(bool(torch.isfinite(b).all()) for b in stats.values())
+              and moved["mean"] > 0 and moved["var"] > 0,
+              f"{label}: BatchNorm statistics not finite or not moved: "
+              f"{moved}")
+        del model
+        torch.cuda.empty_cache()
+        out[label] = {"image_px": px, "num_classes": classes,
+                      "batch": batch, "small_inputs": px <= 64,
+                      "img_per_s": res.pop("items_per_s"), **res,
+                      "batch_stats_moved": moved,
+                      "phase_s": time.perf_counter() - t0}
+    return out
+
+
+def encoder_train_phase(dev) -> dict:
+    """BERT and T5 at gpt-small's widths (12 layers of 12 heads of 64,
+    d_model 768, vocab 50304; remat "dots"), AdamW warmup 10 / decay
+    1000, through make_train: the family_train gates, with K1 launched
+    twice per attention layer and step (remat recomputes the forward)
+    and K2 and K3 once.  BERT: batch ENCODER_BATCH x ENCODER_SEQ with
+    masked_batch's 80/10/10 corruption, then one forward with a padding
+    mask, which must launch no kernel (a mask sends attention to
+    dense_attention).  T5: encoder ENCODER_SEQ, decoder DECODER_SEQ; the
+    kernels' calls by shape must show the cross-attention (q
+    DECODER_SEQ over kv ENCODER_SEQ, non-causal); then greedy_decode of
+    GREEDY_TOKENS tokens on GREEDY_PROMPTS prompts, from fresh random
+    weights with the query and key projections scaled by GREEDY_QK_SCALE,
+    must equal, token for token, the argmax of one teacher-forced forward
+    over the tokens it chose (the same fixed-shape buffer, so the same
+    arithmetic), and no row may be one token repeated."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.models.bert import BERT, masked_batch, mlm_loss_fn
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.t5 import T5, greedy_decode, seq2seq_loss_fn
+    from ray_tpu_torch.train.step import OptimizerConfig, make_train
+    opt = OptimizerConfig(warmup_steps=10, decay_steps=1000)
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    def builder(cls):
+        return lambda impl: cls(get_config(
+            "gpt-small", max_seq_len=ENCODER_SEQ, attention_impl=impl),
+            device=dev)
+
+    def maker(loss_fn):
+        return lambda model: make_train(model, opt, loss_fn)
+
+    cfg = get_config("gpt-small")
+    L, vocab = cfg.n_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    toks = rng.integers(0, vocab - 1, (ENCODER_BATCH, ENCODER_SEQ))
+    mb = masked_batch(toks, vocab, mask_token=vocab - 1, seed=SEED)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+    res, bert, _ = family_train(
+        dev, "bert", builder(BERT), maker(mlm_loss_fn), data,
+        ENCODER_BATCH * ENCODER_SEQ,
+        {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    kernels = kernel_counters()
+    for kfn in kernels.values():
+        kfn.launches = 0
+    mask = torch.ones_like(data["tokens"])
+    mask[:, ENCODER_SEQ // 2:] = 0
+    with torch.no_grad():
+        logits = bert(data["tokens"], mask)
+    torch.cuda.synchronize()
+    masked = {n: kfn.launches for n, kfn in kernels.items()}
+    check(not any(masked.values()) and bool(torch.isfinite(logits).all()),
+          f"bert: a forward with a padding mask launched {masked} or is "
+          "not finite")
+    del bert, logits
+    torch.cuda.empty_cache()
+    out["bert"] = {"batch": ENCODER_BATCH, "seq": ENCODER_SEQ,
+                   "masked_tokens": int((mb["labels"] >= 0).sum()),
+                   "tokens_per_s": res.pop("items_per_s"), **res,
+                   "padding_mask_forward_launches": masked,
+                   "phase_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    data = {"enc_tokens": torch.as_tensor(rng.integers(
+                0, vocab, (ENCODER_BATCH, ENCODER_SEQ)), device=dev),
+            "dec_tokens": torch.as_tensor(rng.integers(
+                0, vocab, (ENCODER_BATCH, DECODER_SEQ + 1)), device=dev)}
+    res, t5, _ = family_train(
+        dev, "t5", builder(T5), maker(seq2seq_loss_fn), data,
+        ENCODER_BATCH * (ENCODER_SEQ + DECODER_SEQ),
+        {"flash_fwd": 6 * L, "flash_bwd_dq": 3 * L,
+         "flash_bwd_dkv": 3 * L}, shapes=True)
+    cross = {k: v for k, v in res["flash_calls_by_shape"].items()
+             if f"q{DECODER_SEQ} kv{ENCODER_SEQ} full" in k}
+    check(cross == {f"{n} q{DECODER_SEQ} kv{ENCODER_SEQ} full": c
+                    for n, c in (("fwd", 2 * L), ("bwd_dq", L),
+                                 ("bwd_dkv", L))},
+          f"t5: cross-attention calls per step {cross}, wanted 2L / L / L "
+          f"at q {DECODER_SEQ} over kv {ENCODER_SEQ}")
+    # decode from fresh random weights: ten steps on one fixed batch
+    # collapse the model onto a single token.  At the reference's init the
+    # attention over 512 keys is near uniform, so every decoder position
+    # sees about the same average of the memory and most rows repeat one
+    # token; GREEDY_QK_SCALE on every query and key projection sharpens it
+    # so that the tokens vary along each row
+    del t5
+    torch.cuda.empty_cache()
+    t5 = builder(T5)("flash")
+    init_weights(t5, torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        for name, param in t5.named_parameters():
+            if name.endswith(("attn.wq.weight", "attn.wk.weight")):
+                param.mul_(GREEDY_QK_SCALE)
+    t0_dec = time.perf_counter()
+    prompts = data["enc_tokens"][:GREEDY_PROMPTS]
+    tokens = greedy_decode(t5, prompts, max_len=GREEDY_TOKENS, bos_id=1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0_dec
+    buf = torch.cat([torch.ones_like(tokens[:, :1]), tokens], dim=1)
+    with torch.no_grad():
+        forced = t5(prompts, buf).argmax(-1)[:, :GREEDY_TOKENS]
+    agree = float((forced == tokens).float().mean())
+    distinct = [len(set(row)) for row in tokens.tolist()]
+    check(tuple(tokens.shape) == (GREEDY_PROMPTS, GREEDY_TOKENS)
+          and agree == 1.0 and min(distinct) > 1,
+          f"t5: greedy_decode's tokens and the teacher-forced argmax "
+          f"agree in {agree} of {tuple(tokens.shape)}, distinct tokens "
+          f"per row {distinct}")
+    del t5
+    torch.cuda.empty_cache()
+    out["t5"] = {"batch": ENCODER_BATCH, "enc_seq": ENCODER_SEQ,
+                 "dec_seq": DECODER_SEQ,
+                 "tokens_per_s": res.pop("items_per_s"), **res,
+                 "greedy": {"prompts": GREEDY_PROMPTS,
+                            "tokens": GREEDY_TOKENS, "decode_s": decode_s,
+                            "agree": agree, "distinct_per_row": distinct,
+                            "first_row": tokens[0, :8].tolist()},
+                 "phase_s": time.perf_counter() - t0}
+    return out
+
+
 def loss_check(dev) -> dict:
     """chunked_lm_loss on bf16 CUDA tensors, whose chunk logits come from
     torch.mm(..., out_dtype=torch.float32), against the same call on the
@@ -2079,6 +2434,16 @@ def main() -> int:
     emit({"phase": "moe_train", **moe_train})
     torch.cuda.empty_cache()
 
+    vision = vision_train_phase(dev)
+    emit({"phase": "vision_train", **vision})
+    torch.cuda.empty_cache()
+
+    encoder = encoder_train_phase(dev)
+    emit({"phase": "encoder_train", **encoder})
+    torch.cuda.empty_cache()
+    family_runs = {"vit_train": vision["vit_b16"], "bert_train":
+                   encoder["bert"], "t5_train": encoder["t5"]}
+
     loss = loss_check(dev)
     emit({"phase": "loss", **loss})
 
@@ -2101,7 +2466,9 @@ def main() -> int:
             "handoff_import":
                 prefix["handoff"]["import_paged_kernel_launches"],
             "moe_slice": moe_slice["paged"]["paged_kernel_launches"],
-            "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"]},
+            "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"],
+            **{path: run["launches"]["paged_attention"]
+               for path, run in family_runs.items()}},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -2132,7 +2499,19 @@ def main() -> int:
             rows[-1]["launches_by_path"] = {
                 "train" if run is train else "splash_train":
                     run["launches"][kind],
-                "moe_train": moe_train["launches"][kind]}
+                "moe_train": moe_train["launches"][kind],
+                **{path: fam["launches"][kind]
+                   for path, fam in family_runs.items()}}
+            for label in PATH_SHAPES:
+                at = phase.get(f"{label}_shape")
+                if at is not None:
+                    rows[-1][label] = {"shape": at["shape"], **{
+                        key: at[kind][key] for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "tflop_s", "max_abs_err",
+                            "frac_differing") if key in at[kind]}}
+                    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                                  at[kind]["max_abs_err"])
             if kind in lean["kernels_at_shape"]:
                 rows[-1]["lean_train"] = {
                     "launches": lean["launches"][kind],
@@ -2155,7 +2534,8 @@ def main() -> int:
          "dense_slice": dense, "prefix_handoff": prefix, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
-         "moe_train": moe_train, "loss": loss, **kernels},
+         "moe_train": moe_train, "vision_train": vision,
+         "encoder_train": encoder, "loss": loss, **kernels},
         indent=1))
     emit(kernels)
     print(smi_line(), flush=True)

@@ -16,5 +16,8 @@ decode; the paged mode with its prefix cache and prefill handoffs ->
 (``train/step.py`` ``make_train`` with AdamW or Adafactor ->
 ``models/gpt.py`` training forward -> ``ops/attention.py`` ->
 ``ops/flash_attention.py`` or ``ops/splash.py``, with
-``ops/losses.py``).  ROADMAP.md lists what is still to come.
+``ops/losses.py``) of every model family: the GPT (dense and MoE),
+``models/bert.py`` and ``models/t5.py`` over ``models/encoder.py``, and
+the image classifiers ``models/vit.py`` and ``models/resnet.py`` through
+``make_vision_train``.  ROADMAP.md lists what is still to come.
 """

@@ -32,7 +32,13 @@ The optimizers run as ``_foreach`` and tensor ops, as XLA runs optax's
 on the TPU: no Pallas kernel there, so no hand-written one here.
 
 The loss functions add the MoE blocks' aux loss, as the reference adds
-its routers' sown values (``_lm_loss_body``).
+its routers' sown values (``_lm_loss_body``).  ``make_train``'s
+``loss_fn`` is any ``(model, batch, z_loss)`` function: the LM losses
+here, ``models/bert.py`` ``mlm_loss_fn`` and ``models/t5.py``
+``seq2seq_loss_fn``.  ``make_vision_train`` trains image classifiers
+(``ViT``, ``ResNet``) with ``classification_loss_fn``; a ResNet's
+BatchNorm statistics, the reference's ``TrainStateBN.batch_stats``, are
+the model's buffers, updated by its training-mode forward.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ray_tpu_torch.models.convert import jax_leaves, to_leaf_layout
+from ray_tpu_torch.models.convert import (from_leaf_layout, model_leaves,
+                                          to_leaf_layout)
 
 Params = Dict[str, torch.Tensor]
 
@@ -53,11 +60,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _decay_mask(params: Params) -> Dict[str, bool]:
-    """Weight-decay the projection weights and ``embed``, by parameter
-    name, as the reference decays the flax leaves named ``kernel`` and
-    ``embed``: a ``.weight`` is a flax kernel (the MoE router's too),
-    while norm scales and the experts' ``w_gate`` / ``w_up`` / ``w_down``
-    are not decayed."""
+    """Weight-decay the projection and convolution weights and ``embed``,
+    by parameter name, as the reference decays the flax leaves named
+    ``kernel`` and ``embed``: a ``.weight`` is a flax kernel (the MoE
+    router's, a convolution's and the classifier head's too), while norm
+    scales, BatchNorm and head biases, ``pos_embed`` and the experts'
+    ``w_gate`` / ``w_up`` / ``w_down`` are not decayed."""
     return {n: n == "embed" or n.endswith(".weight") for n in params}
 
 
@@ -283,9 +291,7 @@ class Adafactor:
             u.mul_(lr * p_rms.clamp(min=_PARAM_RMS_MIN)
                    / torch.clamp(u_rms / _BLOCK_RMS_CLIP, min=1.0))
             for j, n in enumerate(leaf.names):
-                u_n = u[j] if leaf.stacked else u
-                if n.endswith(".weight"):
-                    u_n = u_n.reshape(u_n.shape[0], -1).T
+                u_n = from_leaf_layout(u[j] if leaf.stacked else u, n)
                 p = params[n]
                 if self.weight_decay_rate and decayed[n]:
                     u_n.add_(p, alpha=self.weight_decay_rate)
@@ -345,16 +351,18 @@ class OptimizerConfig:
             max(self.decay_steps, self.warmup_steps + 1),
             self.learning_rate * self.min_lr_ratio)
 
-    def make(self, cfg=None):
+    def make(self, leaves=None):
         """The optimizer.  Adafactor keeps its statistics per leaf of
-        the JAX tree of model config ``cfg``, which it then needs."""
+        the JAX parameter tree, which it then needs: ``leaves`` are the
+        model's (``models/convert.py`` ``model_leaves``, or
+        ``jax_leaves(cfg)`` for a GPT config)."""
         if self.optimizer == "adafactor":
-            if cfg is None:
-                raise ValueError("adafactor needs the model config: "
-                                 "make(cfg)")
+            if leaves is None:
+                raise ValueError("adafactor needs the model's JAX leaves: "
+                                 "make(model_leaves(model))")
             # the reference's approximation of decoupled decay: optax
             # applies the rate raw, once per step
-            tx = Adafactor(self.schedule(), jax_leaves(cfg),
+            tx = Adafactor(self.schedule(), leaves,
                            grad_clip=self.grad_clip,
                            weight_decay_rate=(self.weight_decay
                                               * self.learning_rate))
@@ -471,6 +479,14 @@ def lm_loss_chunked_fn(model: nn.Module, batch: Dict[str, Any],
     return _lm_loss_body(model, batch, head)
 
 
+def _make_tx(model: nn.Module, optimizer: Optional[OptimizerConfig]):
+    """The optimizer for ``model``; Adafactor gets the JAX tree's leaves
+    of the model's family (``models/convert.py`` ``model_leaves``)."""
+    opt = optimizer or OptimizerConfig()
+    return opt.make(model_leaves(model) if opt.optimizer == "adafactor"
+                    else None)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (whose parameters are the trained ones), the optimizer's
@@ -494,7 +510,7 @@ def make_train(model: nn.Module,
     a model with experts, read without a host sync.
     ``z_loss`` defaults to ``model.cfg.z_loss``.
     """
-    tx = (optimizer or OptimizerConfig()).make(getattr(model, "cfg", None))
+    tx = _make_tx(model, optimizer)
     if z_loss is None:
         z_loss = getattr(getattr(model, "cfg", None), "z_loss", 0.0)
 
@@ -519,3 +535,63 @@ def make_train(model: nn.Module,
         return state, metrics
 
     return init_fn, step_fn
+
+
+def classification_loss_fn(logits: torch.Tensor, labels: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean softmax cross-entropy and accuracy for label classification
+    (vision models), in fp32."""
+    logits = logits.float()
+    labels = labels.long()
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.gather(logp, -1, labels[:, None])[:, 0].mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+@dataclasses.dataclass
+class TrainStateBN(TrainState):
+    """``TrainState`` of an image classifier.  The reference's
+    ``TrainStateBN.batch_stats`` are the model's BatchNorm buffers here,
+    which the training-mode forward updates; ``batch_stats`` reads them
+    (empty for a model without BatchNorm, such as ViT)."""
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_buffers())
+
+
+def _vision_loss_fn(model: nn.Module, batch: Dict[str, Any],
+                    z_loss: float = 0.0
+                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``classification_loss_fn`` on the model's logits for batch
+    {"image", "label"}, in ``make_train``'s loss form (no z-loss, as in
+    the reference's vision step)."""
+    dev = next(model.parameters()).device
+    logits = model(torch.as_tensor(batch["image"], device=dev))
+    return classification_loss_fn(
+        logits, torch.as_tensor(batch["label"], device=dev))
+
+
+def make_vision_train(model: nn.Module,
+                      optimizer: Optional[OptimizerConfig] = None):
+    """Returns ``(init_fn, step_fn)`` for an image classifier (``ViT``,
+    ``ResNet``), the one-device counterpart of the reference's
+    ``make_vision_train``: ``make_train`` with ``classification_loss_fn``.
+
+    batch: {"image": [B, H, W, C], "label": [B]}.  ``init_fn() ->
+    TrainStateBN``; ``step_fn(state, batch) -> (state, metrics)`` takes
+    one step in place; metrics hold 0-d tensors ``loss``, ``accuracy``
+    and ``grad_norm`` (before clipping).  A model in training mode
+    (torch's default) updates its BatchNorm statistics in the forward,
+    as the reference threads its ``batch_stats`` through the step; in
+    eval mode it uses them.
+    """
+    init_fn, step_fn = make_train(model, optimizer, _vision_loss_fn,
+                                  z_loss=0.0)
+
+    def init_bn() -> TrainStateBN:
+        state = init_fn()
+        return TrainStateBN(model=state.model, opt_state=state.opt_state)
+
+    return init_bn, step_fn

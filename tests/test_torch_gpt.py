@@ -124,6 +124,14 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     from ray_tpu_torch.serve.llm_engine import LLMEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LLMEngine(cfg, {})
+    from ray_tpu_torch.models import (BERT, T5, Encoder, EncoderBlock,
+                                      ResNet50, ViT, get_vit_config)
+    for build in (lambda: Encoder(cfg), lambda: EncoderBlock(cfg),
+                  lambda: BERT(cfg), lambda: T5(cfg),
+                  lambda: ViT(get_vit_config("vit-tiny-test")),
+                  lambda: ResNet50(num_classes=10)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
 
 
 @pytest.mark.parametrize("path", ["ring", "ulysses"])

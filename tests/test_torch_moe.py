@@ -258,7 +258,7 @@ def test_adafactor_state_size_matches_jax_at_mixtral_depth_2():
                for a in jax.tree.leaves(jstate))
     assert want == 5_859_404
     cfg = get_config("mixtral-8x7b", **over)
-    state = OptimizerConfig(optimizer="adafactor").make(cfg).init(
+    state = OptimizerConfig(optimizer="adafactor").make(jax_leaves(cfg)).init(
         dict(GPT(cfg, device="meta").named_parameters()))
     assert abs(state_nbytes(state) - want) <= 1024
 

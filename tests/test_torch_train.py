@@ -31,7 +31,7 @@ from ray_tpu.parallel import MeshConfig, build_mesh
 from ray_tpu.train.step import OptimizerConfig as JaxOptimizerConfig
 from ray_tpu.train.step import make_sharded_train
 from ray_tpu_torch.models.configs import get_config
-from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.models.convert import jax_leaves, params_from_jax
 from ray_tpu_torch.models.gpt import GPT
 from ray_tpu_torch.ops.losses import chunked_lm_loss, softmax_cross_entropy
 from ray_tpu_torch.train.step import (OptimizerConfig, lm_loss_chunked_fn,
@@ -297,6 +297,6 @@ def test_optimizer_state_size_matches_jax_at_gpt_large(optimizer, want):
                for a in jax.tree.leaves(jstate)) == want
     cfg = get_config("gpt-large", **over)
     model = GPT(cfg, device="meta")
-    state = OptimizerConfig(optimizer=optimizer).make(cfg).init(
+    state = OptimizerConfig(optimizer=optimizer).make(jax_leaves(cfg)).init(
         dict(model.named_parameters()))
     assert abs(state_nbytes(state) - want) <= 1024
