@@ -37,6 +37,20 @@ package.  Phases, one JSON line each:
               (teacher-forced, TTFT with the cache and without), and 4
               prefill handoffs exported by one engine decode on a
               second as a colocated submit does (tokens equal).
+     runtime  the port's task, actor and object runtime
+              (ray_tpu_torch.init): the raylet finds the GPU without
+              starting CUDA; a task that leases no GPU sees
+              CUDA_VISIBLE_DEVICES="" and no CUDA, and its worker holds
+              nothing of JAX or ray_tpu; llama3-8b at full width, depth
+              cut to 2, goes into the object store once, and an actor
+              with num_gpus=1 takes it, builds the model on the card and
+              serves 8 requests on the paged engine: K4 launches
+              n_layers x decode steps there, and the greedy tokens pass
+              the teacher-forced check on the driver's copy; put and get
+              GB/s, where the store's segment lies, the actor's start
+              (fork, CUDA, weights on the card), its decode tokens/s
+              beside the same requests on an engine in the driver; no
+              process of the runtime is left after shutdown().
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
               (16 x 1024, 12 heads of 64, causal, bf16), at gptj-6b's
@@ -1100,6 +1114,271 @@ def prefix_handoff_phase(dev, model) -> dict:
         "import_paged_kernel_launches": import_launches,
         "import_decode_steps": importer.stats.steps,
         "tokens_equal_colocated": True}
+    return out
+
+
+# llama3-8b at full width served by an actor of the port's runtime: 2 of
+# its 32 layers keep the weights the driver puts into the object store
+# near 3 GB (two 1.05 GB embedding tables and 0.44 GB per layer)
+RUNTIME_LAYERS = 2
+RUNTIME_REQUESTS = 8
+RUNTIME_FORBIDDEN = ("jax", "jaxlib", "flax", "ray_tpu", "cloudpickle",
+                     "msgpack", "psutil")
+
+
+def _no_gpu_probe():
+    """What a worker that leased no GPU sees."""
+    import os
+    import sys
+
+    import torch
+
+    from ray_tpu_torch.runtime import worker_main
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_available": torch.cuda.is_available(),
+            "forbidden_loaded": sorted({m.split(".")[0] for m in sys.modules}
+                                       & set(RUNTIME_FORBIDDEN)),
+            "worker_main": worker_main.__file__, "pid": os.getpid()}
+
+
+class ServeActor:
+    """A worker that leases the card, builds ``name`` from the weights in
+    the object store and serves requests on the paged LLMEngine: the
+    pattern of a Serve replica's engine."""
+
+    def __init__(self):
+        import os
+        self.created_at = time.time()
+        self.pid = os.getpid()
+
+    def serve(self, refs, reqs, name: str, n_layers: int):
+        """Build the model on the card from ``refs[0]`` (a state dict in
+        the object store; nested, so the ref arrives unresolved and the
+        fetch is timed here) and serve ``reqs``."""
+        import os
+
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch._private.device import resolve_device
+        from ray_tpu_torch.models.configs import get_config
+        from ray_tpu_torch.models.gpt import GPT
+        from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+        from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+        t0 = time.time()
+        dev = resolve_device(None)      # the card, which this worker leased
+        torch.cuda.init()
+        torch.empty(1, device=dev)       # the context, now
+        torch.cuda.synchronize(dev)
+        t_cuda = time.time()
+        state = ray_tpu_torch.get(refs[0])
+        t_get = time.time()
+        nbytes = sum(v.numel() * v.element_size() for v in state.values())
+        cfg = get_config(name, n_layers=n_layers)
+        model = GPT(cfg, dtype=torch.bfloat16)
+        model.load_state_dict(state)
+        torch.cuda.synchronize(dev)
+        t_loaded = time.time()
+        del state
+        engine = LLMEngine(cfg, model, paged=True, num_slots=8,
+                           page_size=64, max_seq_len=1024, block_size=16,
+                           top_k=50, seed=SEED)
+        try:
+            engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
+            paged_attention_cuda.launches = 0
+            results, _, wall = serve(engine, reqs)
+            launches = paged_attention_cuda.launches
+            stats = engine.stats
+        finally:
+            engine.close()
+        return {
+            "pid": self.pid, "device": str(next(model.parameters()).device),
+            "device_name": torch.cuda.get_device_name(dev),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "tokens": [r.tokens for r in results],
+            "finish": [r.finish_reason for r in results],
+            "prompt_lens": [r.prompt_len for r in results],
+            "launches": launches, "decode_steps": stats.steps,
+            "n_layers": cfg.n_layers, "wall_s": wall,
+            "decode_tok_s": stats.step_tokens / wall,
+            "start": {"created_at": self.created_at, "loaded_at": t_loaded,
+                      "cuda_s": t_cuda - t0, "get_s": t_get - t_cuda,
+                      "get_gb_s": nbytes / 1e9 / max(t_get - t_cuda, 1e-9),
+                      "weights_to_card_s": t_loaded - t_get},
+            "weight_bytes": nbytes}
+
+
+def _runtime_processes(session_dir=None) -> list:
+    """Live processes of the port's runtime (its GCS, raylets, zygotes
+    and workers) that belong to this script: those under this process,
+    and those whose command line names ``session_dir`` (every daemon,
+    the zygote by its socket, and the workers it forks, which keep its
+    command line).  Another checkout's runtime on the machine is not
+    counted."""
+    import os
+    me = os.getpid()
+    parent, cmds = {}, {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == me:
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{pid}/stat") as f:
+                # the field after the parenthesised name is the state,
+                # then the parent's pid
+                parent[int(pid)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if "ray_tpu_torch.runtime." in cmd:
+            cmds[int(pid)] = cmd.strip()
+
+    def mine(pid: int) -> bool:
+        seen = set()
+        while pid > 1 and pid not in seen:
+            seen.add(pid)
+            pid = parent.get(pid, 0)
+            if pid == me:
+                return True
+        return False
+
+    return [(pid, cmd) for pid, cmd in sorted(cmds.items())
+            if mine(pid) or (session_dir and session_dir in cmd)]
+
+
+def runtime_phase(dev, name: str = "llama3-8b",
+                  n_layers: int = RUNTIME_LAYERS) -> dict:
+    """The port's task, actor and object runtime on the card: the
+    requests served first by an engine in this process; then a cluster
+    whose raylet finds the GPU without starting CUDA; a task that leases
+    no GPU and sees none; an actor that leases the card, takes ``name``
+    (full width, depth ``n_layers``) through the object store and serves
+    the same RUNTIME_REQUESTS requests on the paged engine, checked
+    against this process's copy of the weights; then a shutdown that
+    leaves no process of the session behind."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.runtime.node import session_base
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    model, _ = make_model(dev, name, n_layers=n_layers)
+    cfg = model.cfg
+    reqs = make_requests(cfg.vocab_size, RUNTIME_REQUESTS)
+
+    # the same requests on an engine in this process, before the
+    # runtime starts (the actor's run comes second, in a fresh process)
+    engine = LLMEngine(cfg, model, paged=True, num_slots=8,
+                       page_size=64, max_seq_len=1024, block_size=16,
+                       top_k=50, seed=SEED, device=dev)
+    try:
+        engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
+        local, _, wall = serve(engine, reqs)
+        in_process = {"decode_tok_s": engine.stats.step_tokens / wall,
+                      "wall_s": wall, "decode_steps": engine.stats.steps}
+    finally:
+        engine.close()
+
+    state = {k: v.detach().to("cpu", torch.bfloat16)
+             for k, v in model.state_dict().items()}
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    store_bytes = int(nbytes * 1.25) + (1 << 30)
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=store_bytes)
+    init_s = time.perf_counter() - t0
+    node = ray_tpu_torch.api._node
+    out = {"model": name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.num_params(), "init_s": init_s,
+           "session_dir": node.session_dir, "store_path": node.store_path,
+           "store_bytes": store_bytes,
+           "store_in_dev_shm": node.store_path.startswith("/dev/shm/")}
+    try:
+        res = ray_tpu_torch.cluster_resources()
+        out["cluster_resources"] = res
+        check(res.get("GPU") == 1.0,
+              f"the raylet found {res.get('GPU')} GPUs, wanted 1")
+        check(node.session_dir.startswith(session_base() + os.sep),
+              f"session dir {node.session_dir} is not under "
+              f"{session_base()}")
+
+        probe = ray_tpu_torch.get(
+            ray_tpu_torch.remote(_no_gpu_probe).remote(), timeout=300)
+        out["no_gpu_task"] = probe
+        check(probe["cuda_visible_devices"] == "",
+              f"a task without a GPU sees CUDA_VISIBLE_DEVICES="
+              f"{probe['cuda_visible_devices']!r}")
+        check(not probe["cuda_available"], "a task without a GPU has CUDA")
+        check(probe["forbidden_loaded"] == [],
+              f"a worker loaded {probe['forbidden_loaded']}")
+        check(os.sep + os.path.join("ray_tpu_torch", "runtime",
+                                    "worker_main.py") in probe["worker_main"],
+              f"the worker runs {probe['worker_main']}")
+
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(state)
+        put_s = time.perf_counter() - t0
+        del state
+        out.update(weight_bytes=nbytes, put_s=put_s,
+                   put_gb_s=nbytes / 1e9 / put_s)
+
+        t0 = time.time()
+        actor = ray_tpu_torch.remote(ServeActor).options(num_gpus=1).remote()
+        got = ray_tpu_torch.get(actor.serve.remote([ref], reqs, name,
+                                                   n_layers), timeout=900)
+        start = got["start"]
+        out["actor"] = {k: v for k, v in got.items() if k != "tokens"}
+        # host wall clocks of one machine: the driver's and the actor's
+        out["actor"]["start"] = {
+            "fork_s": start["created_at"] - t0,
+            **{k: start[k] for k in ("cuda_s", "get_s", "get_gb_s",
+                                     "weights_to_card_s")},
+            "total_s": start["loaded_at"] - t0}
+        check(got["pid"] != os.getpid(), "the actor ran in the driver")
+        check(got["device_name"] == torch.cuda.get_device_name(dev),
+              f"the actor ran on {got['device_name']}")
+        check(got["cuda_visible_devices"] not in (None, ""),
+              f"the GPU actor sees CUDA_VISIBLE_DEVICES="
+              f"{got['cuda_visible_devices']!r}")
+        check(got["weight_bytes"] == nbytes,
+              f"the actor got {got['weight_bytes']} B of {nbytes}")
+        for i, (r, toks) in enumerate(zip(reqs, got["tokens"])):
+            check(len(toks) == r["max_new_tokens"]
+                  and got["finish"][i] == "length"
+                  and got["prompt_lens"][i] == len(r["prompt"])
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"actor request {i}: {len(toks)} tokens, "
+                  f"{got['finish'][i]}")
+        check(got["launches"] > 0, "the actor never launched K4")
+        check(got["launches"] == got["n_layers"] * got["decode_steps"],
+              f"actor K4 launches {got['launches']} != n_layers "
+              f"{got['n_layers']} x decode steps {got['decode_steps']}")
+        ray_tpu_torch.kill(actor)
+
+        # the actor's greedy tokens teacher-forced through this copy
+        greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0]
+        forced = [teacher_forced(engine, reqs[i]["prompt"], got["tokens"][i])
+                  for i in greedy]
+        in_process.update(
+            greedy_tokens_equal=sum(local[i].tokens == got["tokens"][i]
+                                    for i in greedy), greedy=len(greedy))
+        out["in_process"] = in_process
+        out["teacher_forced"] = forced
+        check_forced(forced)
+    finally:
+        ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    check(not left, f"processes left after shutdown: {left}")
     return out
 
 
@@ -2402,6 +2681,10 @@ def main() -> int:
     del llama
     torch.cuda.empty_cache()
 
+    runtime = runtime_phase(dev)
+    emit({"phase": "runtime", **runtime})
+    torch.cuda.empty_cache()
+
     flash = flash_phase(dev)
     emit({"phase": "flash", **flash})
     torch.cuda.empty_cache()
@@ -2465,6 +2748,7 @@ def main() -> int:
             "prefix_cache": prefix["with_cache"]["paged_kernel_launches"],
             "handoff_import":
                 prefix["handoff"]["import_paged_kernel_launches"],
+            "runtime_actor": runtime["actor"]["launches"],
             "moe_slice": moe_slice["paged"]["paged_kernel_launches"],
             "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"],
             **{path: run["launches"]["paged_attention"]
@@ -2531,7 +2815,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "kernel": kern, "slice": sl,
-         "dense_slice": dense, "prefix_handoff": prefix, "flash": flash,
+         "dense_slice": dense, "prefix_handoff": prefix,
+         "runtime": runtime, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,

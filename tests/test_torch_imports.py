@@ -1,5 +1,9 @@
 """The port stands alone: no module of ray_tpu_torch, and not
-chip_smoke.py, imports jax, flax or anything of ray_tpu."""
+chip_smoke.py, imports jax, flax or anything of ray_tpu, nor the
+third-party packages ray_tpu's runtime needs that the card's machine may
+lack (cloudpickle: the port vendors its own; msgpack; psutil), and no
+``-m`` argument or ``import_module`` string names a ray_tpu module (it
+would quietly spawn ray_tpu's daemons)."""
 
 import ast
 import subprocess
@@ -9,7 +13,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu",
+             "cloudpickle", "msgpack", "psutil")
 
 
 def _sources():
@@ -39,11 +44,33 @@ def test_no_jax_or_ray_tpu_imports(path):
               and isinstance(node.args[0], ast.Constant)
               and _forbidden(str(node.args[0].value))):
             bad.append(node.args[0].value)
+        elif isinstance(node, (ast.List, ast.Tuple)):
+            # argv lists: [python, "-m", "ray_tpu.runtime.raylet", ...]
+            elts = node.elts
+            for flag, mod in zip(elts, elts[1:]):
+                if (isinstance(flag, ast.Constant) and flag.value == "-m"
+                        and isinstance(mod, ast.Constant)
+                        and isinstance(mod.value, str)
+                        and _forbidden(mod.value)):
+                    bad.append(f"-m {mod.value}")
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_the_argv_check_sees_a_ray_tpu_daemon(tmp_path):
+    """The check above refuses the argv string that would start ray_tpu's
+    worker instead of the port's (mutation check on a copy of the
+    raylet's spawn line)."""
+    src = (ROOT / "ray_tpu_torch" / "runtime" / "raylet.py").read_text()
+    line = '"-m", "ray_tpu_torch.runtime.worker_main"'
+    assert line in src
+    path = tmp_path / "raylet.py"
+    path.write_text(src.replace(line, '"-m", "ray_tpu.runtime.worker_main"'))
+    with pytest.raises(AssertionError, match="ray_tpu.runtime.worker_main"):
+        test_no_jax_or_ray_tpu_imports(path)
+
+
 def test_engine_import_leaves_jax_unloaded():
-    code = ("import sys, ray_tpu_torch.serve.llm_engine, "
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch.serve.llm_engine, "
             "ray_tpu_torch.models.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
