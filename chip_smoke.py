@@ -51,6 +51,24 @@ package.  Phases, one JSON line each:
               (fork, CUDA, weights on the card), its decode tokens/s
               beside the same requests on an engine in the driver; no
               process of the runtime is left after shutdown().
+     serve    Serve and LLMServer on the port's runtime, in a session of
+              its own: llama3-8b at full width and depth on one replica
+              leasing the card (build_app, num_gpus=1, the slice
+              phase's engine settings) serves 16 requests through a
+              DeploymentHandle, two of them streamed; every request
+              completes, K4 launches n_layers x decode steps in the
+              replica (a subclass of LLMServer with one read-only
+              method reads its count), the engine holds bf16 weights
+              and the fp32 ones are gone, and after serve.shutdown()
+              the greedy tokens pass the teacher-forced check on a copy
+              the driver builds through LLMServer._load_params; then a
+              disaggregated prefill / decode pair at depth 2 on two
+              half-card replicas serves 8 streams through
+              disagg_handle: the pools' prefill, export, import and
+              step counts, K4 only in the decode replica, the handoffs'
+              bytes on the timeline, the teacher-forced check; replica
+              start (CUDA, fp32 init, cast, warmup), TTFT, decode
+              tokens/s, memory; no process is left after shutdown().
   4. flash    the flash kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
               against their plain versions at gpt-small training shapes
               (16 x 1024, 12 heads of 64, causal, bf16), at gptj-6b's
@@ -160,6 +178,7 @@ the kernel phase's three timed shapes, and writes
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
 import statistics
@@ -1371,6 +1390,401 @@ def runtime_phase(dev, name: str = "llama3-8b",
         out["teacher_forced"] = forced
         check_forced(forced)
     finally:
+        ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
+# Serve on the port's runtime: one llama3-8b replica at full width and
+# depth, then a disaggregated prefill / decode pair at depth 2 sharing
+# the card; both with the slice phase's engine settings
+SERVE_ENGINE = dict(paged=True, num_slots=8, page_size=64,
+                    max_seq_len=1024, block_size=16, top_k=50, seed=SEED)
+SERVE_STREAMED = (2, 3)
+DISAGG_LAYERS = 2
+DISAGG_REQUESTS = 8
+
+
+def counted_server_class():
+    """``LLMServer`` with one read-only method, ``probe``: what the
+    replica's K4 wrapper counted since the replica became ready (the
+    count is set to 0 at the end of ``__init__``, after the warmup), and
+    how the replica started (host clock: CUDA, the fp32 weights on the
+    card, the engine's cast copy, the warmup) and its memory."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from ray_tpu_torch.serve import llm_engine
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class CountedLLMServer(LLMServer):
+        _times: dict = {}
+
+        def __init__(self, *args, **kwargs):
+            times = CountedLLMServer._times
+            times["init_at"] = time.time()
+            warmup = llm_engine.LLMEngine.warmup
+
+            def timed_warmup(engine, *a, **kw):
+                times["warmup_at"] = time.time()
+                warmup(engine, *a, **kw)
+
+            llm_engine.LLMEngine.warmup = timed_warmup
+            try:
+                super().__init__(*args, **kwargs)
+            finally:
+                llm_engine.LLMEngine.warmup = warmup
+            dev = self.engine.device
+            torch.cuda.synchronize(dev)
+            times.update(ready_at=time.time(),
+                         allocated_gb=torch.cuda.memory_allocated(dev) / 1e9,
+                         init_peak_gb=torch.cuda.max_memory_allocated(dev)
+                         / 1e9)
+            torch.cuda.reset_peak_memory_stats(dev)
+            paged_attention_cuda.launches = 0
+
+        @staticmethod
+        def _load_params(cfg, checkpoint, seed, device):
+            times = CountedLLMServer._times
+            torch.empty(1, device=device)      # the context, now
+            torch.cuda.synchronize(device)
+            times["cuda_at"] = time.time()
+            params = LLMServer._load_params(cfg, checkpoint, seed, device)
+            torch.cuda.synchronize(device)
+            times["params_at"] = time.time()
+            times["param_bytes"] = sum(
+                p.numel() * p.element_size() for p in params.parameters())
+            return params
+
+        def probe(self) -> dict:
+            dev = self.engine.device
+            return {"k4_launches": paged_attention_cuda.launches,
+                    "pid": os.getpid(),
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(dev),
+                    "device_name": torch.cuda.get_device_name(dev),
+                    "dtype": str(next(self.engine.model.parameters()).dtype),
+                    "kv_dtype": str(self.engine._cache[0].dtype),
+                    "n_layers": self.engine.cfg.n_layers,
+                    "kv_pool_pages": self.engine.kv_pool_pages,
+                    "serving_peak_gb":
+                        torch.cuda.max_memory_allocated(dev) / 1e9,
+                    "start": dict(CountedLLMServer._times)}
+
+    return CountedLLMServer
+
+
+def counted(app, cls):
+    """``app`` (from ``build_app``) with ``cls`` in place of LLMServer
+    and the same deployment options, its upstream pool included."""
+    from ray_tpu_torch.serve import Application, Deployment
+    kwargs = {k: counted(v, cls) if isinstance(v, Application) else v
+              for k, v in app.init_kwargs.items()}
+    dep = app.deployment
+    return Deployment(cls, dep.name, dep.config).bind(*app.init_args,
+                                                      **kwargs)
+
+
+def _wait_gone(pids, timeout: float = 120.0) -> None:
+    """Wait until the processes ``pids`` (killed replicas) have exited,
+    so their card memory is free."""
+    import os
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and any(
+            os.path.exists(f"/proc/{p}") for p in pids):
+        time.sleep(0.2)
+    left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+    check(not left, f"replica processes {left} outlived serve.shutdown()")
+
+
+def _pct(values, q: float) -> float:
+    """Nearest-rank percentile."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(0, math.ceil(q * len(v)) - 1))]
+
+
+def _driver_engine(dev, name: str, n_layers=None):
+    """The driver's checking copy: ``LLMServer._load_params`` (fp32 from
+    the seed, as a replica builds it) cast into a paged engine."""
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    cfg = get_config(name, **({} if n_layers is None
+                              else dict(n_layers=n_layers)))
+    params = LLMServer._load_params(cfg, None, SEED, dev)
+    engine = LLMEngine(cfg, params, device=dev, **SERVE_ENGINE)
+    del params
+    return engine
+
+
+def _check_probe(probe, dev, n_layers: int, steps: int, label: str) -> None:
+    import torch
+    check(probe["device_name"] == torch.cuda.get_device_name(dev),
+          f"{label} ran on {probe['device_name']}")
+    check(probe["cuda_visible_devices"] not in (None, ""),
+          f"{label} sees CUDA_VISIBLE_DEVICES="
+          f"{probe['cuda_visible_devices']!r}")
+    check(probe["dtype"] == "torch.bfloat16",
+          f"{label}'s engine holds {probe['dtype']} weights")
+    check(probe["n_layers"] == n_layers,
+          f"{label} has {probe['n_layers']} layers")
+    check(probe["k4_launches"] == n_layers * steps,
+          f"{label}: K4 launches {probe['k4_launches']} != n_layers "
+          f"{n_layers} x decode steps {steps}")
+    # the engine keeps its bf16 copy; the fp32 weights are gone
+    check(probe["start"]["allocated_gb"] * 1e9
+          < probe["start"]["param_bytes"],
+          f"{label} holds {probe['start']['allocated_gb']:.2f} GB after "
+          f"start, the fp32 weights were "
+          f"{probe['start']['param_bytes'] / 1e9:.2f} GB")
+
+
+def _start_times(probe, t_run: float) -> dict:
+    s = probe["start"]
+    return {"run_to_init_s": s["init_at"] - t_run,
+            "cuda_s": s["cuda_at"] - s["init_at"],
+            "fp32_init_s": s["params_at"] - s["cuda_at"],
+            "cast_s": s["warmup_at"] - s["params_at"],
+            "warmup_s": s["ready_at"] - s["warmup_at"],
+            "total_s": s["ready_at"] - t_run,
+            "fp32_param_gb": s["param_bytes"] / 1e9,
+            "allocated_after_start_gb": s["allocated_gb"],
+            "start_peak_gb": s["init_peak_gb"]}
+
+
+def serve_phase(dev, name: str = "llama3-8b") -> dict:
+    """Serve and LLMServer on the port's runtime, as the module
+    docstring says: a colocated replica at full depth, then a
+    disaggregated pair at depth DISAGG_LAYERS; shutdown leaves no
+    process of the session."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.serve import DeploymentHandle
+    from ray_tpu_torch.serve.llm import build_app, disagg_handle
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    cfg = get_config(name)
+    reqs = make_requests(cfg.vocab_size)
+    lens = [len(r["prompt"]) for r in reqs]
+    cls = counted_server_class()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=1 << 30)
+    node = ray_tpu_torch.api._node
+    out = {"model": name, "init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir}
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU") == 1.0,
+              "the raylet did not find the GPU")
+
+        # 1. colocated, full depth, on one replica leasing the card
+        app = build_app(name, num_gpus=1, warmup_prompt_lens=lens,
+                        **SERVE_ENGINE)
+        check(app.deployment.config.ray_actor_options == {"num_gpus": 1},
+              f"build_app gave {app.deployment.config.ray_actor_options}")
+        t_run = time.time()
+        handle = serve.run(counted(app, cls))
+        probe0 = ray_tpu_torch.get(handle.probe.remote(), timeout=900)
+        check(probe0["k4_launches"] == 0,
+              f"K4 launched {probe0['k4_launches']} times before serving")
+        t0 = time.perf_counter()
+        refs = {i: handle.remote(r) for i, r in enumerate(reqs)
+                if i not in SERVE_STREAMED}
+        streams = {i: handle.stream.remote_streaming(reqs[i])
+                   for i in SERVE_STREAMED}
+        items = {}
+
+        def consume(i):
+            items[i] = [ray_tpu_torch.get(ref, timeout=600)
+                        for ref in streams[i]]
+        threads = [threading.Thread(target=consume, args=(i,))
+                   for i in SERVE_STREAMED]
+        for t in threads:
+            t.start()
+        results = {i: ray_tpu_torch.get(ref, timeout=600)
+                   for i, ref in refs.items()}
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "streams hung")
+        tokens = {i: r["tokens"] for i, r in results.items()}
+        for i in SERVE_STREAMED:
+            toks = [x["token"] for x in items[i][:-1]]
+            summary = items[i][-1]
+            check(len(toks) == summary["num_tokens"],
+                  f"request {i} streamed {len(toks)} tokens, its summary "
+                  f"counts {summary['num_tokens']}")
+            tokens[i], results[i] = toks, summary
+        for i, r in enumerate(reqs):
+            check(len(tokens[i]) == r["max_new_tokens"]
+                  and results[i]["finish_reason"] == "length"
+                  and results[i]["prompt_len"] == len(r["prompt"])
+                  and all(0 <= t < cfg.vocab_size for t in tokens[i]),
+                  f"request {i}: {len(tokens[i])} tokens, "
+                  f"{results[i]['finish_reason']}")
+        stats = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+        probe = ray_tpu_torch.get(handle.probe.remote(), timeout=60)
+        check(stats["steps"] > 0, "the replica never stepped")
+        check(stats["requests_completed"] == len(reqs),
+              f"the replica completed {stats['requests_completed']}")
+        _check_probe(probe, dev, cfg.n_layers, stats["steps"], "replica")
+        check(probe["pid"] != os.getpid(), "the replica ran in the driver")
+        ttfts = [results[i]["time_to_first_token_s"]
+                 for i in range(len(reqs))]
+        out["colocated"] = {
+            "n_layers": cfg.n_layers, "params": cfg.num_params(),
+            "requests": len(reqs), "streamed": list(SERVE_STREAMED),
+            "ray_actor_options": app.deployment.config.ray_actor_options,
+            "start": _start_times(probe, t_run),
+            "wall_s": wall, "stats": stats,
+            "k4_launches": probe["k4_launches"],
+            "decode_tok_s": (stats["tokens_generated"] - stats["prefills"])
+            / wall,
+            "ttft_p50_s": _pct(ttfts, 0.5), "ttft_p90_s": _pct(ttfts, 0.9),
+            "latency_p50_s": _pct([results[i]["latency_s"]
+                                   for i in range(len(reqs))], 0.5),
+            "serving_peak_gb": probe["serving_peak_gb"],
+            "replica_pid": probe["pid"],
+            "cuda_visible_devices": probe["cuda_visible_devices"]}
+        serve.shutdown()
+        _wait_gone([probe["pid"]])
+
+        # the driver's copy, built as the replica built its own
+        t0 = time.perf_counter()
+        engine = _driver_engine(dev, name)
+        out["colocated"]["driver_copy_s"] = time.perf_counter() - t0
+        greedy = [i for i, r in enumerate(reqs) if r["temperature"] == 0.0]
+        try:
+            forced = [teacher_forced(engine, reqs[i]["prompt"], tokens[i])
+                      for i in greedy]
+        finally:
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+        out["colocated"]["teacher_forced"] = forced
+        check_forced(forced)
+
+        # 2. disaggregated, depth DISAGG_LAYERS, two half-card replicas
+        dreqs = make_requests(cfg.vocab_size, DISAGG_REQUESTS)
+        app = build_app(name, disaggregated=True, prefill_replicas=1,
+                        num_replicas=1, num_gpus=0.5,
+                        config_overrides={"n_layers": DISAGG_LAYERS},
+                        warmup_prompt_lens=[len(r["prompt"]) for r in dreqs],
+                        **SERVE_ENGINE)
+        t_run = time.time()
+        serve.run(counted(app, cls))
+        pools = {role: DeploymentHandle(f"llm-{name}-{role}")
+                 for role in ("prefill", "decode")}
+        probes0 = {role: ray_tpu_torch.get(h.probe.remote(), timeout=900)
+                   for role, h in pools.items()}
+        dh = disagg_handle(name)
+
+        async def one(req):
+            got = [x async for x in dh.stream(req)]
+            return [x["token"] for x in got if "token" in x], got[-1]
+
+        async def streams_all():
+            return await asyncio.gather(*(one(r) for r in dreqs))
+        t0 = time.perf_counter()
+        streamed = asyncio.run(asyncio.wait_for(streams_all(), 600))
+        dwall = time.perf_counter() - t0
+        for i, ((toks, summary), r) in enumerate(zip(streamed, dreqs)):
+            check(summary.get("finish_reason") == "length"
+                  and summary.get("num_tokens") == r["max_new_tokens"]
+                  and len(toks) == r["max_new_tokens"]
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"disagg request {i}: {len(toks)} tokens, {summary}")
+        dstats = {role: ray_tpu_torch.get(h.stats.remote(), timeout=60)
+                  for role, h in pools.items()}
+        dprobe = {role: ray_tpu_torch.get(h.probe.remote(), timeout=60)
+                  for role, h in pools.items()}
+        pre, dec = dstats["prefill"], dstats["decode"]
+        n = len(dreqs)
+        check(pre["prefills"] == pre["exports"] == n and pre["steps"] == 0,
+              f"prefill pool: {pre}")
+        check(dec["imports"] == n and dec["prefills"] == 0,
+              f"decode pool: {dec}")
+        for role, steps in (("prefill", 0), ("decode", dec["steps"])):
+            _check_probe(dprobe[role], dev, DISAGG_LAYERS, steps,
+                         f"{role} replica")
+        check(dprobe["prefill"]["cuda_visible_devices"]
+              == dprobe["decode"]["cuda_visible_devices"],
+              "the half-card replicas hold different cards")
+        # the handoffs as the timeline records them: one export and one
+        # import per request, of the prompt's pages
+        from ray_tpu_torch.experimental.state.api import timeline
+        ps = SERVE_ENGINE["page_size"]
+        kv_dtype = dprobe["prefill"]["kv_dtype"].removeprefix("torch.")
+        page_bytes = (DISAGG_LAYERS * cfg.n_kv_heads * ps * 2
+                      * cfg.head_dim * getattr(torch, kv_dtype).itemsize)
+        want_bytes = sum(-(-len(r["prompt"]) // ps) * page_bytes
+                         for r in dreqs)
+        events, deadline = [], time.monotonic() + 60
+        while time.monotonic() < deadline:
+            events = [e for e in timeline() if e.get("cat") == "handoff"]
+            if len(events) >= 2 * n:
+                break
+            time.sleep(0.5)
+        by_stage = {s: [(e["args"]["bytes"], e["dur"] / 1e3)
+                        for e in events if e["args"]["stage"] == s]
+                    for s in ("export", "import")}
+        for stage, evs in by_stage.items():
+            got = sum(b for b, _ in evs)
+            check(len(evs) == n and got == want_bytes,
+                  f"{stage} handoffs: {len(evs)} of {got} B in all, "
+                  f"wanted {n} of {want_bytes} B")
+        out["disagg"] = {
+            "n_layers": DISAGG_LAYERS, "requests": n,
+            "ray_actor_options": app.deployment.config.ray_actor_options,
+            "start": {role: _start_times(p, t_run)
+                      for role, p in dprobe.items()},
+            "wall_s": dwall, "stats": dstats,
+            "k4_launches": {role: p["k4_launches"]
+                            for role, p in dprobe.items()},
+            "decode_tok_s": (dec["tokens_generated"]) / dwall,
+            "handoff_bytes": want_bytes,
+            "handoff_bytes_per_request": [b for b, _ in by_stage["export"]],
+            "export_ms": [ms for _, ms in by_stage["export"]],
+            "import_pull_ms": [ms for _, ms in by_stage["import"]],
+            "handoff_pull_ms": [s["handoff_pull_ms"] for _, s in streamed],
+            "ttft_p50_s": _pct([s["time_to_first_token_s"]
+                                for _, s in streamed], 0.5),
+            "cards": dprobe["decode"]["cuda_visible_devices"],
+            "probes_before_serving": {role: p["k4_launches"]
+                                      for role, p in probes0.items()}}
+        check(all(p["k4_launches"] == 0 for p in probes0.values()),
+              f"K4 launched before serving: {out['disagg']['probes_before_serving']}")
+        serve.shutdown()
+        _wait_gone([p["pid"] for p in dprobe.values()])
+        engine = _driver_engine(dev, name, DISAGG_LAYERS)
+        try:
+            forced = [teacher_forced(engine, dreqs[i]["prompt"],
+                                     streamed[i][0])
+                      for i, r in enumerate(dreqs)
+                      if r["temperature"] == 0.0]
+        finally:
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+        out["disagg"]["teacher_forced"] = forced
+        check_forced(forced)
+    finally:
+        serve.shutdown()
         ray_tpu_torch.shutdown()
         deadline = time.monotonic() + 30
         left = _runtime_processes(node.session_dir)
@@ -2685,6 +3099,10 @@ def main() -> int:
     emit({"phase": "runtime", **runtime})
     torch.cuda.empty_cache()
 
+    served = serve_phase(dev)
+    emit({"phase": "serve", **served})
+    torch.cuda.empty_cache()
+
     flash = flash_phase(dev)
     emit({"phase": "flash", **flash})
     torch.cuda.empty_cache()
@@ -2749,6 +3167,10 @@ def main() -> int:
             "handoff_import":
                 prefix["handoff"]["import_paged_kernel_launches"],
             "runtime_actor": runtime["actor"]["launches"],
+            "serve_colocated": served["colocated"]["k4_launches"],
+            "serve_disagg_decode": served["disagg"]["k4_launches"]["decode"],
+            "serve_disagg_prefill":
+                served["disagg"]["k4_launches"]["prefill"],
             "moe_slice": moe_slice["paged"]["paged_kernel_launches"],
             "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"],
             **{path: run["launches"]["paged_attention"]
@@ -2816,7 +3238,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "kernel": kern, "slice": sl,
          "dense_slice": dense, "prefix_handoff": prefix,
-         "runtime": runtime, "flash": flash,
+         "runtime": runtime, "serve": served, "flash": flash,
          "splash": splash, "train": train, "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,

@@ -229,6 +229,24 @@ class EngineStats:
         return (self.step_tokens / (self.steps * num_slots)
                 if self.steps else 0.0)
 
+    def snapshot(self, num_slots: int) -> dict:
+        """The counters as a dict, keyed as ray_tpu's engine keys them
+        (what a Serve replica's ``stats()`` returns)."""
+        return {
+            "steps": self.steps,
+            "tokens_generated": self.tokens_generated,
+            "prefills": self.prefills,
+            "requests_completed": self.requests_completed,
+            "batch_occupancy": round(self.occupancy(num_slots), 4),
+            "exports": self.exports,
+            "imports": self.imports,
+            "import_rejects": self.import_rejects,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_tokens_saved": self.prefix_tokens_saved,
+            "prefix_evictions": self.prefix_evictions,
+        }
+
 
 class _HostFetch:
     """One device->host copy in flight: pinned memory, ``non_blocking``,
@@ -468,12 +486,17 @@ class LLMEngine:
 
     # ------------------------------------------------------------- public
 
-    def warmup(self, prompt_lens=(64,)) -> None:
+    def warmup(self, prompt_lens=(64,), burst: int = 0) -> None:
         """Run each prompt bucket once and one decode block, all into the
         scratch row or page, so the first request pays no kernel build
         or library initialisation.  Eager PyTorch compiles nothing per
         shape, so one wave size per bucket is enough.  Call it before
-        submitting requests."""
+        submitting requests.
+
+        ``burst`` (paged mode, as in ray_tpu): then push that many
+        1-token dummy requests of ``max(prompt_lens)`` tokens through
+        the live loop at once.  They count in the stats as any request
+        does."""
         with torch.no_grad():
             for bucket in sorted({self._bucket(n) for n in prompt_lens}):
                 if self.paged:
@@ -491,6 +514,37 @@ class LLMEngine:
             self._block_step()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if burst and self.paged:
+            plen = max(prompt_lens)
+
+            async def _burst():
+                futs = [self.submit([7] * plen, max_new_tokens=1)
+                        for _ in range(burst)]
+                await asyncio.gather(*futs)
+
+            # submit() returns a future only inside a running loop, and
+            # asyncio.run() raises inside one (an async serve replica
+            # warming up from a coroutine): drive the burst from a
+            # helper thread with its own loop there
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                asyncio.run(_burst())
+            else:
+                out: dict = {}
+
+                def _runner():
+                    try:
+                        asyncio.run(_burst())
+                    except BaseException as e:  # noqa: BLE001
+                        out["err"] = e
+
+                t = threading.Thread(target=_runner,
+                                     name="llm-warmup-burst")
+                t.start()
+                t.join()
+                if "err" in out:
+                    raise out["err"]
 
     def _check_prompt(self, prompt: List[int]) -> None:
         if len(prompt) == 0:
@@ -698,6 +752,25 @@ class LLMEngine:
         if "err" in out:
             raise out["err"]
         return out["ok"]
+
+    def load_snapshot(self) -> dict:
+        """Queue and occupancy counts feeding per-pool autoscaling
+        (serve/replica.py get_metrics -> controller): a prefill pool
+        scales off queue depth, a decode pool off slot/ready occupancy."""
+        with self._lock:
+            return {
+                "pending": len(self._pending),
+                "imports": len(self._imports) if self.paged else 0,
+                "ready": len(self._ready) if self.paged else 0,
+                "busy_slots": self.num_slots - len(self._free),
+                "free_pages": (len(self._free_pages) if self.paged
+                               else 0),
+                "pool_pages": self.kv_pool_pages if self.paged else 0,
+                "prefix_pages_cached": (self._prefix_pages_used
+                                        if self.paged else 0),
+                "prefix_entries": (len(self._prefix_entries)
+                                   if self.paged else 0),
+            }
 
     def close(self):
         with self._lock:

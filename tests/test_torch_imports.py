@@ -77,3 +77,18 @@ def test_engine_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serve_import_leaves_jax_and_aiohttp_unloaded():
+    """Plain Serve loads no model code of torch's; ``serve.llm`` loads
+    it, and nothing of FORBIDDEN, nor aiohttp (the card's machine lacks
+    it; the HTTP front door is not ported)."""
+    code = ("import sys, ray_tpu_torch.serve; "
+            "plain = 'ray_tpu_torch.models.gpt' in sys.modules; "
+            "import ray_tpu_torch.serve.llm; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('aiohttp',)!r}]; print(plain, bad); "
+            "sys.exit(1 if bad or plain else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
