@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the GPT, MoE,
-encoder and vision families) on one NVIDIA H100 and hold its CUDA
-kernels against their plain PyTorch versions.
+encoder and vision families, the runtime, Serve, the trainer and the
+HTTP front door) on one NVIDIA H100 and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -106,6 +107,32 @@ package.  Phases, one JSON line each:
               config's (remat recomputes the forward) while the splash
               counters stay at 0; step ms, tokens/s, MFU, peak memory,
               and device time by kernel group.
+     air      the AIR path on the port's runtime, in a session of its
+              own: (a) JaxTrainer trains gpt-small at full width and
+              depth with the train phase's settings, seed and batch in a
+              worker leasing the card, 20 steps reported through
+              session.report with the worker's own kernel launches
+              (24 / 12 / 12 K1 / K2 / K3 per step, K4 and K5 at 0), the
+              first loss against the train phase's first kernel step,
+              the losses falling, fp32 torch checkpoints at steps 7, 14
+              and 20 of which CheckpointConfig(num_to_keep=2) keeps the
+              last two; (b) LLMServer serves the step-20 checkpoint
+              behind the HTTP proxy (serve.run with HTTPOptions): 8 SSE
+              streams and 2 JSON requests from threads, /-/healthz and
+              /-/echo, one stream the client closes halfway (the
+              replica's busy slots return to 0), one request to a
+              deployment that does not exist (a 500 with the JSON error
+              shape); each stream's tokens match its done event, K4
+              launches n_layers x decode steps in the replica, the
+              greedy tokens pass the teacher-forced check on a copy the
+              driver loads from the checkpoint; client-side TTFT and
+              decode tokens/s beside the serve phase's; (c) two workers
+              on half the card each train gpt-small at depth 2 (batch
+              8 x 1024 per rank, 5 steps), their gradients averaged by
+              sync_gradients on the host collective: the ranks'
+              parameters bitwise equal after every step, 4 / 2 / 2
+              K1 / K2 / K3 per step on each rank, the grad_allreduce ms
+              per step; no process is left after shutdown().
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
@@ -1413,8 +1440,9 @@ DISAGG_REQUESTS = 8
 
 def counted_server_class():
     """``LLMServer`` with one read-only method, ``probe``: what the
-    replica's K4 wrapper counted since the replica became ready (the
-    count is set to 0 at the end of ``__init__``, after the warmup), and
+    replica's K4 wrapper (and every other kernel's) counted since the
+    replica became ready (the counts are set to 0 at the end of
+    ``__init__``, after the warmup), its engine's slot counts, and
     how the replica started (host clock: CUDA, the fp32 weights on the
     card, the engine's cast copy, the warmup) and its memory."""
     import os
@@ -1449,7 +1477,8 @@ def counted_server_class():
                          init_peak_gb=torch.cuda.max_memory_allocated(dev)
                          / 1e9)
             torch.cuda.reset_peak_memory_stats(dev)
-            paged_attention_cuda.launches = 0
+            for kernel in kernel_counters().values():
+                kernel.launches = 0
 
         @staticmethod
         def _load_params(cfg, checkpoint, seed, device):
@@ -1460,13 +1489,17 @@ def counted_server_class():
             params = LLMServer._load_params(cfg, checkpoint, seed, device)
             torch.cuda.synchronize(device)
             times["params_at"] = time.time()
+            tensors = (params.values() if isinstance(params, dict)
+                       else params.parameters())
             times["param_bytes"] = sum(
-                p.numel() * p.element_size() for p in params.parameters())
+                p.numel() * p.element_size() for p in tensors)
             return params
 
         def probe(self) -> dict:
             dev = self.engine.device
             return {"k4_launches": paged_attention_cuda.launches,
+                    "launches": {n: k.launches
+                                 for n, k in kernel_counters().items()},
                     "pid": os.getpid(),
                     "cuda_visible_devices":
                         os.environ.get("CUDA_VISIBLE_DEVICES"),
@@ -1478,6 +1511,7 @@ def counted_server_class():
                     "kv_pool_pages": self.engine.kv_pool_pages,
                     "serving_peak_gb":
                         torch.cuda.max_memory_allocated(dev) / 1e9,
+                    "load": self.engine.load_snapshot(),
                     "start": dict(CountedLLMServer._times)}
 
     return CountedLLMServer
@@ -1512,21 +1546,23 @@ def _pct(values, q: float) -> float:
     return v[min(len(v) - 1, max(0, math.ceil(q * len(v)) - 1))]
 
 
-def _driver_engine(dev, name: str, n_layers=None):
+def _driver_engine(dev, name: str, n_layers=None, checkpoint=None):
     """The driver's checking copy: ``LLMServer._load_params`` (fp32 from
-    the seed, as a replica builds it) cast into a paged engine."""
+    the seed, or ``checkpoint``'s, as a replica builds it) cast into a
+    paged engine."""
     from ray_tpu_torch.models.configs import get_config
     from ray_tpu_torch.serve.llm import LLMServer
     from ray_tpu_torch.serve.llm_engine import LLMEngine
     cfg = get_config(name, **({} if n_layers is None
                               else dict(n_layers=n_layers)))
-    params = LLMServer._load_params(cfg, None, SEED, dev)
+    params = LLMServer._load_params(cfg, checkpoint, SEED, dev)
     engine = LLMEngine(cfg, params, device=dev, **SERVE_ENGINE)
     del params
     return engine
 
 
-def _check_probe(probe, dev, n_layers: int, steps: int, label: str) -> None:
+def _check_probe(probe, dev, n_layers: int, steps: int, label: str,
+                 fp32_on_card: bool = True) -> None:
     import torch
     check(probe["device_name"] == torch.cuda.get_device_name(dev),
           f"{label} ran on {probe['device_name']}")
@@ -1541,7 +1577,7 @@ def _check_probe(probe, dev, n_layers: int, steps: int, label: str) -> None:
           f"{label}: K4 launches {probe['k4_launches']} != n_layers "
           f"{n_layers} x decode steps {steps}")
     # the engine keeps its bf16 copy; the fp32 weights are gone
-    check(probe["start"]["allocated_gb"] * 1e9
+    check(not fp32_on_card or probe["start"]["allocated_gb"] * 1e9
           < probe["start"]["param_bytes"],
           f"{label} holds {probe['start']['allocated_gb']:.2f} GB after "
           f"start, the fp32 weights were "
@@ -1786,6 +1822,503 @@ def serve_phase(dev, name: str = "llama3-8b") -> dict:
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
+# The AIR path on the port's runtime: JaxTrainer trains gpt-small in a GPU
+# worker and reports a torch checkpoint, LLMServer serves that checkpoint
+# behind the HTTP proxy, and a two-worker gang shares the card
+AIR_STEPS = TRAIN_STEPS
+AIR_BATCH, AIR_SEQ = 16, 1024           # the train phase's batch
+AIR_CKPT_STEPS = (7, 14, AIR_STEPS)      # three reported, two kept
+AIR_STREAMS = 8
+AIR_JSON = 2
+GANG_LAYERS = 2
+GANG_BATCH = 8
+GANG_STEPS = 5
+# per step under remat "dots": K1 twice per layer, K2 and K3 once
+AIR_PER_STEP = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def air_train_loop(config):
+    """The train loop of phase air, in a trainer worker: gpt-small from
+    the seed (``n_layers`` cut where given) on the worker's card, the
+    train phase's batch for rank 0 (the seed plus the rank for the
+    others), ``make_train`` with AdamW, gradients averaged across the
+    gang (``train.sync_gradients``) when there is one.  Each step it
+    reports the loss, gradient norm, step ms and this process's kernel
+    launches; in a gang also whether every rank's parameters are bitwise
+    equal (a SHA-256 over their bytes, gathered on the host collective),
+    every rank's launches and the step's ``grad_allreduce`` ms from the
+    step clock; ``history`` holds every step's report so far.  At the
+    steps ``ckpt_steps`` it reports a torch checkpoint of the fp32
+    parameters in ``ckpt_dir``."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch._private import step_stats
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.train.step import OptimizerConfig, make_train
+    from ray_tpu_torch.util import collective as col
+
+    dev = train.get_device()
+    rank, world = session.get_world_rank(), session.get_world_size()
+    batch, seq = config["batch"], config["seq"]
+    over = dict(max_seq_len=seq, remat=True, remat_policy="dots",
+                attention_impl="flash")
+    if config.get("n_layers"):
+        over["n_layers"] = config["n_layers"]
+    cfg = get_config("gpt-small", **over)
+    model = GPT(cfg, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(
+        config["seed"]))
+    rng = np.random.default_rng(config["seed"] + rank)
+    data = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, seq + 1))).to(dev)}
+    init_fn, step_fn = make_train(
+        model, OptimizerConfig(warmup_steps=10, decay_steps=1000),
+        grad_sync=train.sync_gradients if world > 1 else None)
+    state = init_fn()
+    group = os.environ.get("RAY_TPU_TORCH_TRAIN_COLLECTIVE_GROUP")
+    kernels = kernel_counters()
+    clock = train.step_clock()
+    history = []
+    run = step_stats.current_run()
+
+    def synced_ms():
+        return (run.ledger.phase_ms.get("grad_allreduce", 0.0)
+                if run is not None else 0.0)
+
+    for step in range(1, config["steps"] + 1):
+        before = {n: k.launches for n, k in kernels.items()}
+        sync_before = synced_ms()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        clock.begin()
+        state, m = step_fn(state, data)
+        loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        clock.end(tokens=batch * seq)
+        out = {"step": step, "loss": loss, "grad_norm": grad_norm,
+               "step_ms": step_ms,
+               "launches": {n: k.launches - before[n]
+                            for n, k in kernels.items()},
+               "pid": os.getpid(),
+               "device_name": torch.cuda.get_device_name(dev),
+               "cuda_visible_devices":
+                   os.environ.get("CUDA_VISIBLE_DEVICES")}
+        if world > 1:
+            digest = hashlib.sha256()
+            for p in model.parameters():
+                digest.update(p.detach().cpu().numpy().tobytes())
+            digests = col.allgather(
+                np.frombuffer(digest.digest(), np.uint8), group)
+            counts = col.allgather(np.array(
+                [out["launches"][n] for n in sorted(kernels)], np.int64),
+                group)
+            out.update(
+                params_equal=all(np.array_equal(d, digests[0])
+                                 for d in digests),
+                rank_launches=[dict(zip(sorted(kernels), c.tolist()))
+                               for c in counts],
+                grad_sync_ms=synced_ms() - sync_before)
+        ckpt = None
+        if step in config["ckpt_steps"]:
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_torch(
+                {"params": {k: v.detach().float()
+                            for k, v in model.state_dict().items()}},
+                metrics={"step": step, "loss": loss},
+                path=os.path.join(config["ckpt_dir"], f"step_{step}"))
+            out["checkpoint_save_s"] = time.perf_counter() - t0
+        history.append(out)
+        session.report(dict(out, history=list(history)), checkpoint=ckpt)
+
+
+def _air_fit(scaling, loop_config: dict, storage: str, name: str):
+    """One JaxTrainer fit of ``air_train_loop``; (result, every step's
+    report, the fit's wall seconds)."""
+    from ray_tpu_torch.air import CheckpointConfig, RunConfig
+    from ray_tpu_torch.train import JaxTrainer
+    t0 = time.perf_counter()
+    result = JaxTrainer(air_train_loop, train_loop_config=loop_config,
+                        scaling_config=scaling,
+                        run_config=RunConfig(
+                            name=name, storage_path=storage,
+                            checkpoint_config=CheckpointConfig(
+                                num_to_keep=2))).fit()
+    return (result, result.metrics.get("history", []),
+            time.perf_counter() - t0)
+
+
+def _http(host: str, port: int, method: str, path: str, body=None,
+          timeout: float = 600.0) -> tuple:
+    """(status, content type, parsed body) of one request."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read()
+        ctype = (r.getheader("Content-Type") or "").split(";")[0]
+        return (r.status, ctype, json.loads(data)
+                if ctype == "application/json" else data.decode())
+    finally:
+        conn.close()
+
+
+def _sse_stream(host: str, port: int, path: str, req: dict) -> dict:
+    """One SSE request as a client reads it: the token events with their
+    arrival times, the ``done`` summary, any other event."""
+    import http.client
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    out = {"tokens": [], "times": [], "done": None, "other": []}
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(req),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out.update(status=r.status, ctype=r.getheader("Content-Type"),
+                   chunked=r.getheader("Transfer-Encoding"), sent=t0)
+        event = None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                if event is None and "token" in data:
+                    out["tokens"].append(data["token"])
+                    out["times"].append(time.perf_counter())
+                elif event == "done":
+                    out["done"] = data
+                else:
+                    out["other"].append((event, data))
+            elif not line:
+                event = None
+    finally:
+        conn.close()
+    return out
+
+
+def _sse_hang_up(host: str, port: int, path: str, req: dict,
+                 after: int) -> int:
+    """Read ``after`` token events of a stream, then close the socket;
+    the count of events read."""
+    import socket
+    body = json.dumps(req).encode()
+    with socket.create_connection((host, port), timeout=600) as s:
+        s.sendall(f"POST {path} HTTP/1.1\r\nHost: {host}\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        got = b""
+        while got.count(b"data: {\"token\"") < after:
+            chunk = s.recv(65536)
+            check(chunk != b"", "the stream ended before the hang-up")
+            got += chunk
+    return got.count(b"data: {\"token\"")
+
+
+def air_launches(air: dict, kind: str) -> dict:
+    """The air phase's launches of kernel ``kind`` by path: the trainer
+    worker, the replica behind the proxy, the gang (both ranks)."""
+    return {path: air[part]["launches"][kind] for path, part in (
+        ("air_train", "train"), ("air_serve", "serve"),
+        ("air_gang", "gang"))}
+
+
+def air_phase(dev, train: dict, served: dict) -> dict:
+    """The AIR path on the port's runtime, in a session of its own, as
+    the module docstring says: (a) JaxTrainer trains gpt-small in a
+    worker leasing the card, (b) LLMServer serves its checkpoint behind
+    the HTTP proxy, (c) a two-worker gang on half a card each syncs its
+    gradients over the host collective.  ``train`` and ``served`` are
+    the train and serve phases' results, to stand beside."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.models.configs import get_config
+    from ray_tpu_torch.serve import DeploymentHandle, HTTPOptions
+    from ray_tpu_torch.serve.llm import build_app
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_air_")
+    name = "gpt-small"
+    cfg = get_config(name)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    host = "127.0.0.1"
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, object_store_memory=1 << 30)
+    node = ray_tpu_torch.api._node
+    out = {"init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir, "http_port": port}
+    unknown = {}
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU") == 1.0,
+              "the raylet did not find the GPU")
+        # the proxy first: a request to a deployment nobody made waits
+        # out the handle's 60 s backpressure before its 500, so it runs
+        # beside the training
+        serve.start(http_options=HTTPOptions(host=host, port=port))
+
+        def ask_unknown():
+            t = time.perf_counter()
+            unknown["reply"] = _http(host, port, "POST",
+                                     "/no-such-deployment", {"x": 1})
+            unknown["s"] = time.perf_counter() - t
+        unknown_thread = threading.Thread(target=ask_unknown)
+        unknown_thread.start()
+
+        # (a) gpt-small at full width and depth through JaxTrainer
+        result, reports, fit_s = _air_fit(
+            ScalingConfig(num_workers=1, use_gpu=True),
+            dict(seed=SEED, batch=AIR_BATCH, seq=AIR_SEQ, steps=AIR_STEPS,
+                 ckpt_steps=AIR_CKPT_STEPS, ckpt_dir=work),
+            work, "air_train")
+        check(result.error is None, f"the trainer failed: {result.error}")
+        check(result.metrics.get("training_iteration") == AIR_STEPS
+              and len(reports) == AIR_STEPS,
+              f"{len(reports)} reports, training_iteration "
+              f"{result.metrics.get('training_iteration')}")
+        want = {n: 0 for n in kernel_counters()}
+        want.update({n: v * cfg.n_layers for n, v in AIR_PER_STEP.items()})
+        for r in reports:
+            check(r["launches"] == want,
+                  f"air_train step {r['step']}: launches {r['launches']} "
+                  f"!= {want}")
+        losses = [r["loss"] for r in reports]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"air_train losses {losses}: not finite and falling")
+        first = train["parity"]["flash"]["loss"]
+        check(abs(losses[0] - first) / abs(first) <= LOSS_RTOL,
+              f"air_train's first loss {losses[0]} against the train "
+              f"phase's {first}")
+        kept = [c.metrics()["step"] for c, _ in result.best_checkpoints]
+        check(kept == list(AIR_CKPT_STEPS[-2:]),
+              f"kept checkpoints of steps {kept}")
+        check(reports[0]["device_name"] == torch.cuda.get_device_name(dev)
+              and reports[0]["cuda_visible_devices"] not in (None, ""),
+              f"the trainer worker ran on {reports[0]['device_name']} "
+              f"seeing {reports[0]['cuda_visible_devices']!r}")
+        timed = reports[1:]
+        air_tok_s = (AIR_BATCH * AIR_SEQ * len(timed)
+                     / (sum(r["step_ms"] for r in timed) / 1e3))
+        out["train"] = {
+            "model": name, "n_layers": cfg.n_layers, "batch": AIR_BATCH,
+            "seq": AIR_SEQ, "steps": AIR_STEPS, "fit_s": fit_s,
+            "losses": losses, "first_loss": losses[0],
+            "train_phase_first_loss": first,
+            "step_ms": [r["step_ms"] for r in reports],
+            "launches_per_step": reports[-1]["launches"],
+            "launches": {n: sum(r["launches"][n] for r in reports)
+                         for n in want},
+            "tokens_s": air_tok_s, "train_phase_tokens_s":
+                train["tokens_s"],
+            "checkpoints_reported": list(AIR_CKPT_STEPS),
+            "checkpoints_kept": kept,
+            "checkpoint_save_s": [r["checkpoint_save_s"] for r in reports
+                                  if "checkpoint_save_s" in r],
+            "checkpoint_bytes": sum(
+                os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                os.walk(os.path.join(work, f"step_{AIR_STEPS}"))
+                for f in fs),
+            "worker_pid": reports[0]["pid"]}
+        _wait_gone([reports[0]["pid"]])
+
+        # (b) that checkpoint behind the proxy
+        ckpt_dir = result.checkpoint.to_directory(
+            os.path.join(work, "served"))
+        reqs = make_requests(cfg.vocab_size, AIR_STREAMS + AIR_JSON + 1)
+        lens = [len(r["prompt"]) for r in reqs]
+        app = build_app(name, checkpoint=ckpt_dir, num_gpus=1,
+                        warmup_prompt_lens=lens, **SERVE_ENGINE)
+        t_run = time.time()
+        handle = serve.run(counted(app, counted_server_class()),
+                           http_options=HTTPOptions(host=host, port=port))
+        dep = app.deployment.name
+        probe0 = ray_tpu_torch.get(handle.probe.remote(), timeout=900)
+        check(probe0["k4_launches"] == 0,
+              f"K4 launched {probe0['k4_launches']} times before serving")
+        check(_http(host, port, "GET", "/-/healthz") == (200, "text/plain",
+                                                         "ok"),
+              "/-/healthz did not answer ok")
+        echo = {"echo": [1, 2.5, None]}
+        check(_http(host, port, "POST", "/-/echo", echo)
+              == (200, "application/json", echo), "/-/echo did not echo")
+        streams, answers = {}, {}
+
+        def stream(i):
+            streams[i] = _sse_stream(host, port, f"/-/stream/{dep}",
+                                     reqs[i])
+
+        def ask(i):
+            answers[i] = _http(host, port, "POST", f"/{dep}", reqs[i])
+        threads = ([threading.Thread(target=stream, args=(i,))
+                    for i in range(AIR_STREAMS)]
+                   + [threading.Thread(target=ask, args=(i,))
+                      for i in range(AIR_STREAMS, AIR_STREAMS + AIR_JSON)])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "HTTP requests hung")
+        tokens = {}
+        for i, st in streams.items():
+            check(st["status"] == 200
+                  and st["ctype"] == "text/event-stream"
+                  and st["chunked"] == "chunked" and not st["other"],
+                  f"stream {i}: {st['status']} {st['ctype']} "
+                  f"{st['chunked']} {st['other']}")
+            check(st["done"] is not None
+                  and st["done"]["num_tokens"] == len(st["tokens"])
+                  == reqs[i]["max_new_tokens"]
+                  and st["done"]["finish_reason"] == "length",
+                  f"stream {i}: {len(st['tokens'])} tokens, done "
+                  f"{st['done']}")
+            tokens[i] = st["tokens"]
+        for i, (status, ctype, body) in answers.items():
+            check(status == 200 and ctype == "application/json"
+                  and len(body["tokens"]) == reqs[i]["max_new_tokens"]
+                  and body["finish_reason"] == "length",
+                  f"JSON request {i}: {status} {ctype} {body}")
+            tokens[i] = body["tokens"]
+        # one more stream, left by its client halfway
+        hang = reqs[-1]
+        read = _sse_hang_up(host, port, f"/-/stream/{dep}", hang,
+                            hang["max_new_tokens"] // 2)
+        busy, deadline = None, time.monotonic() + 120
+        while busy != 0 and time.monotonic() < deadline:
+            probe = ray_tpu_torch.get(handle.probe.remote(), timeout=60)
+            busy = probe["load"]["busy_slots"]
+            time.sleep(0.2)
+        check(busy == 0, f"{busy} slots still busy after the hang-up")
+        stats = ray_tpu_torch.get(handle.stats.remote(), timeout=60)
+        probe = ray_tpu_torch.get(handle.probe.remote(), timeout=60)
+        # the checkpoint's fp32 weights never reach the card
+        _check_probe(probe, dev, cfg.n_layers, stats["steps"],
+                     "air replica", fp32_on_card=False)
+        check(stats["requests_completed"] == len(reqs),
+              f"the replica completed {stats['requests_completed']} of "
+              f"{len(reqs)}")
+        firsts = [st["times"][0] - st["sent"] for st in streams.values()]
+        decoded = sum(len(st["tokens"]) - 1 for st in streams.values())
+        t_first = min(st["sent"] for st in streams.values())
+        t_last = max(st["times"][-1] for st in streams.values())
+        out["serve"] = {
+            "model": name, "deployment": dep, "checkpoint": ckpt_dir,
+            "requests": len(reqs), "streams": AIR_STREAMS,
+            "json_requests": AIR_JSON, "hang_up_after": read,
+            "start": _start_times(probe, t_run), "wall_s": wall,
+            "stats": stats, "k4_launches": probe["k4_launches"],
+            "launches": probe["launches"],
+            "client_ttft_p50_s": _pct(firsts, 0.5),
+            "client_ttft_p90_s": _pct(firsts, 0.9),
+            "client_decode_tok_s": decoded / (t_last - t_first),
+            "serve_phase_ttft_p50_s": served["colocated"]["ttft_p50_s"],
+            "serve_phase_decode_tok_s":
+                served["colocated"]["decode_tok_s"],
+            "serving_peak_gb": probe["serving_peak_gb"],
+            "replica_pid": probe["pid"]}
+        serve.delete(dep)
+        _wait_gone([probe["pid"]])
+        t0 = time.perf_counter()
+        engine = _driver_engine(dev, name, checkpoint=ckpt_dir)
+        out["serve"]["driver_copy_s"] = time.perf_counter() - t0
+        try:
+            forced = [teacher_forced(engine, reqs[i]["prompt"], tokens[i])
+                      for i in sorted(tokens)
+                      if reqs[i]["temperature"] == 0.0]
+        finally:
+            engine.close()
+            del engine
+            torch.cuda.empty_cache()
+        out["serve"]["teacher_forced"] = forced
+        check_forced(forced)
+
+        # (c) two workers on half a card each, gradients synced on the
+        # host collective
+        gang, greports, gang_s = _air_fit(
+            ScalingConfig(num_workers=2, use_gpu=True,
+                          devices_per_worker=0.5),
+            dict(seed=SEED, batch=GANG_BATCH, seq=AIR_SEQ, steps=GANG_STEPS,
+                 n_layers=GANG_LAYERS, ckpt_steps=(), ckpt_dir=work),
+            work, "air_gang")
+        check(gang.error is None, f"the gang failed: {gang.error}")
+        check(len(greports) == GANG_STEPS, f"{len(greports)} gang reports")
+        gwant = {n: 0 for n in kernel_counters()}
+        gwant.update({n: v * GANG_LAYERS for n, v in AIR_PER_STEP.items()})
+        for r in greports:
+            check(r["params_equal"],
+                  f"gang step {r['step']}: the ranks' parameters differ")
+            check(r["rank_launches"] == [gwant, gwant],
+                  f"gang step {r['step']}: launches {r['rank_launches']}")
+            check(r["grad_sync_ms"] > 0,
+                  f"gang step {r['step']}: no grad_allreduce phase")
+        glosses = [r["loss"] for r in greports]
+        check(all(math.isfinite(x) for x in glosses)
+              and glosses[-1] < glosses[0],
+              f"gang losses {glosses}: not finite and falling")
+        out["gang"] = {
+            "model": name, "n_layers": GANG_LAYERS, "workers": 2,
+            "gpu_per_worker": 0.5, "batch_per_rank": GANG_BATCH,
+            "seq": AIR_SEQ, "steps": GANG_STEPS, "fit_s": gang_s,
+            "losses_rank0": glosses,
+            "step_ms": [r["step_ms"] for r in greports],
+            "grad_sync_ms": [r["grad_sync_ms"] for r in greports],
+            "params_equal": [r["params_equal"] for r in greports],
+            "launches_per_step_per_rank": greports[-1]["rank_launches"],
+            # both ranks, every step
+            "launches": {n: sum(rl[n] for r in greports
+                                for rl in r["rank_launches"])
+                         for n in gwant},
+            "grad_bytes_per_step": 4 * get_config(
+                name, n_layers=GANG_LAYERS).num_params()}
+        unknown_thread.join(timeout=300)
+        check(not unknown_thread.is_alive(),
+              "the unknown deployment's request hung")
+        status, ctype, body = unknown["reply"]
+        check(status == 500 and ctype == "application/json"
+              and set(body) == {"error", "message"},
+              f"unknown deployment: {status} {ctype} {body}")
+        out["unknown_deployment"] = {"status": status, "body": body,
+                                     "s": unknown["s"]}
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
         deadline = time.monotonic() + 30
         left = _runtime_processes(node.session_dir)
         while left and time.monotonic() < deadline:
@@ -2572,7 +3105,8 @@ def moe_slice_phase(dev) -> dict:
             engine.warmup(prompt_lens=[len(r["prompt"]) for r in reqs])
             warm_s = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats(dev)
-            paged_attention_cuda.launches = 0
+            for kernel in kernel_counters().values():
+                kernel.launches = 0
             results, _, wall = serve(engine, reqs)
             launches = paged_attention_cuda.launches
             steps = engine.stats.steps
@@ -3115,6 +3649,10 @@ def main() -> int:
     emit({"phase": "train", **train})
     torch.cuda.empty_cache()
 
+    air = air_phase(dev, train, served)
+    emit({"phase": "air", **air})
+    torch.cuda.empty_cache()
+
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
     torch.cuda.empty_cache()
@@ -3174,7 +3712,8 @@ def main() -> int:
             "moe_slice": moe_slice["paged"]["paged_kernel_launches"],
             "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"],
             **{path: run["launches"]["paged_attention"]
-               for path, run in family_runs.items()}},
+               for path, run in family_runs.items()},
+            **air_launches(air, "paged_attention")},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -3207,7 +3746,8 @@ def main() -> int:
                     run["launches"][kind],
                 "moe_train": moe_train["launches"][kind],
                 **{path: fam["launches"][kind]
-                   for path, fam in family_runs.items()}}
+                   for path, fam in family_runs.items()},
+                **air_launches(air, kind)}
             for label in PATH_SHAPES:
                 at = phase.get(f"{label}_shape")
                 if at is not None:
@@ -3239,7 +3779,8 @@ def main() -> int:
         {"device": device, "kernel": kern, "slice": sl,
          "dense_slice": dense, "prefix_handoff": prefix,
          "runtime": runtime, "serve": served, "flash": flash,
-         "splash": splash, "train": train, "splash_train": splash_train,
+         "splash": splash, "train": train, "air": air,
+         "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,
          "encoder_train": encoder, "loss": loss, **kernels},

@@ -88,10 +88,41 @@ _real_rlock = threading.RLock
 _installed = False
 _prefixes: Tuple[str, ...] = _DEFAULT_PREFIXES
 
+# The sanitizer's own two locks mark their holder busy.  Any allocation
+# made while one is held may start a garbage collection on this thread,
+# whose finalizers (``ObjectRef.__del__``) take instrumented locks; their
+# bookkeeping would wait on the guard this very thread holds, forever.
+# A lock taken while its thread is busy is acquired for real and left
+# out of the held stacks and the graph.
+_busy = threading.local()
+
+
+class _Guard:
+    """A plain lock that marks its holder's thread busy while held (set
+    before the acquire: the thread-local's first store may allocate)."""
+
+    __slots__ = ("_lock",)
+
+    def __init__(self):
+        self._lock = _real_lock()
+
+    def __enter__(self) -> None:
+        _busy.on = True
+        self._lock.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+        _busy.on = False
+
+
+def _is_busy() -> bool:
+    return getattr(_busy, "on", False)
+
+
 # acquisition-order graph over lock classes (creation sites):
 # (a_site, b_site) -> (a_acquire_site, b_acquire_site) of the FIRST
 # observation — kept so a later inverse edge can name both windows
-_graph_lock = _real_lock()
+_graph_lock = _Guard()
 _edges: Dict[Tuple[str, str], Tuple[str, str]] = {}
 _succ: Dict[str, Set[str]] = {}
 
@@ -101,7 +132,7 @@ _succ: Dict[str, Set[str]] = {}
 # entry from the RECORDING thread's stack or it haunts that thread as
 # a phantom, spraying false order edges.  _held_guard serializes stack
 # mutation; empty stacks are pruned so dead threads don't accumulate.
-_held_guard = _real_lock()
+_held_guard = _Guard()
 _held_by_tid: Dict[int, List[Tuple[str, str, object]]] = {}
 
 
@@ -171,6 +202,9 @@ def _record_edges(new_site: str, acquire_site: str) -> None:
 def _on_acquired(site: str, lock: object, first: bool) -> None:
     if not first:
         return  # RLock recursion: already on the stack
+    if _is_busy():
+        lock._held_tid = None  # a finalizer run under a guard: unrecorded
+        return
     acq = _caller_site(3)
     _record_edges(site, acq)
     tid = threading.get_ident()
@@ -184,7 +218,7 @@ def _on_released(lock: object) -> None:
     # which, for a plain Lock handed across threads, may not be the
     # releasing thread
     tid = getattr(lock, "_held_tid", None)
-    if tid is None:
+    if tid is None or _is_busy():
         return
     with _held_guard:
         held = _held_by_tid.get(tid)

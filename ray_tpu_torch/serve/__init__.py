@@ -6,8 +6,10 @@ with power-of-two-choices load balancing; autoscaling reacts to
 per-replica queue metrics.  Replicas that hold the card lease
 ``num_gpus``.  ``serve.llm`` is the LLM deployment (``LLMServer``,
 ``build_app``, ``disagg_handle``) over the continuous-batching engine
-(``serve/llm_engine.py``).  The HTTP front door (ray_tpu's
-``http_proxy.py`` and ``frontdoor/sse.py``) is not ported yet.
+(``serve/llm_engine.py``).  ``serve.start(http=True)`` or
+``serve.run(..., http_options=HTTPOptions(...))`` starts the HTTP front
+door (``http_proxy.py``, SSE in ``frontdoor/sse.py``), on the standard
+library.
 """
 
 from ray_tpu_torch.serve.api import (delete, get_app_handle,

@@ -1,10 +1,9 @@
 """serve.start/run/shutdown/delete/status — the public Serve API.
 
 Analog of Ray's python/ray/serve/api.py (serve.run :455) and
-_private/client.py: ``start`` launches the detached controller, ``run``
-deploys an Application graph bottom-up and returns a handle to the root
-deployment.  The HTTP proxy of ray_tpu's copy is not ported yet
-(``NO_HTTP_PROXY``): asking for it raises.
+_private/client.py: ``start`` launches the detached controller (+ HTTP
+proxy, ``serve/http_proxy.py``), ``run`` deploys an Application graph
+bottom-up and returns a handle to the root deployment.
 """
 
 from __future__ import annotations
@@ -22,15 +21,19 @@ from ray_tpu_torch.serve.handle import DeploymentHandle
 
 PROXY_NAME = "SERVE_PROXY"
 
-NO_HTTP_PROXY = (
-    "ray_tpu_torch's Serve has no HTTP front door yet (ROADMAP.md, Queue 1, "
-    "item 3b: serve/http_proxy.py and serve/frontdoor/sse.py wait for a "
-    "later slice; they need aiohttp); route requests through a "
-    "DeploymentHandle")
-
 
 def _ensure_proxy(http_options: HTTPOptions) -> None:
-    raise RuntimeError(NO_HTTP_PROXY)
+    try:
+        ray_tpu_torch.get_actor(PROXY_NAME, namespace=SERVE_NAMESPACE)
+        return  # already running (port changes need serve.shutdown first)
+    except ValueError:
+        pass
+    from ray_tpu_torch.serve.http_proxy import HTTPProxyActor
+    proxy = ray_tpu_torch.remote(HTTPProxyActor).options(
+        name=PROXY_NAME, namespace=SERVE_NAMESPACE,
+        lifetime="detached", max_concurrency=16, num_cpus=0.1,
+    ).remote(http_options.host, http_options.port)
+    ray_tpu_torch.get(proxy.ready.remote(), timeout=30)
 
 
 def _get_controller(create: bool = False,

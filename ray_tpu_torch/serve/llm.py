@@ -141,7 +141,8 @@ class LLMServer:
     """Replica class: one engine per replica, admission via async call.
 
     ``checkpoint``: optional checkpoint directory (``air.Checkpoint``
-    dict form) holding ``params``: the port's state dict, or a JAX
+    dict or torch form) holding ``params``: the port's state dict (what
+    a trainer's ``Checkpoint.from_torch`` writes), or a JAX
     parameter tree of numpy arrays as ray_tpu's checkpoints hold it;
     absent means randomly initialized weights from ``seed``
     (shape-correct perf benchmarking without a weights file).
@@ -237,7 +238,8 @@ class LLMServer:
         if checkpoint:
             from ray_tpu_torch.air.checkpoint import Checkpoint
             ckpt = Checkpoint.from_directory(checkpoint)
-            state = ckpt.to_dict()
+            state = (ckpt.to_torch() if ckpt.has_torch_state()
+                     else ckpt.to_dict())
             for key in ("params", "model_params"):
                 if key in state:
                     return _state_dict(state[key], cfg)

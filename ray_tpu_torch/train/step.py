@@ -499,7 +499,8 @@ class TrainState:
 def make_train(model: nn.Module,
                optimizer: Optional[OptimizerConfig] = None,
                loss_fn: Callable = lm_loss_fn,
-               z_loss: Optional[float] = None):
+               z_loss: Optional[float] = None,
+               grad_sync: Optional[Callable[[Params], Params]] = None):
     """Returns ``(init_fn, step_fn)``.
 
     ``init_fn() -> TrainState`` builds the optimizer state for the model's
@@ -509,6 +510,10 @@ def make_train(model: nn.Module,
     norm of the raw gradients, before clipping), and ``moe_aux_loss`` for
     a model with experts, read without a host sync.
     ``z_loss`` defaults to ``model.cfg.z_loss``.
+    ``grad_sync`` (for example ``train.sync_gradients``) maps the
+    gradients to the gang's average before the norm and the update: the
+    data parallelism across trainer workers that ``make_sharded_train``
+    gets from its mesh.
     """
     tx = _make_tx(model, optimizer)
     if z_loss is None:
@@ -525,6 +530,8 @@ def make_train(model: nn.Module,
                                   allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for (n, p), g in zip(params.items(), raw)}
+        if grad_sync is not None:
+            grads = grad_sync(grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads.values())
         # a profiler range, so a trace can tell the optimizer's device

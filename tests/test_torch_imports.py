@@ -1,7 +1,8 @@
 """The port stands alone: no module of ray_tpu_torch, and not
 chip_smoke.py, imports jax, flax or anything of ray_tpu, nor the
 third-party packages ray_tpu's runtime needs that the card's machine may
-lack (cloudpickle: the port vendors its own; msgpack; psutil), and no
+lack (cloudpickle: the port vendors its own; msgpack; psutil; aiohttp:
+the port's HTTP proxy is the standard library's), and no
 ``-m`` argument or ``import_module`` string names a ray_tpu module (it
 would quietly spawn ray_tpu's daemons)."""
 
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu",
-             "cloudpickle", "msgpack", "psutil")
+             "cloudpickle", "msgpack", "psutil", "aiohttp")
 
 
 def _sources():
@@ -80,14 +81,16 @@ def test_engine_import_leaves_jax_unloaded():
 
 
 def test_serve_import_leaves_jax_and_aiohttp_unloaded():
-    """Plain Serve loads no model code of torch's; ``serve.llm`` loads
-    it, and nothing of FORBIDDEN, nor aiohttp (the card's machine lacks
-    it; the HTTP front door is not ported)."""
+    """Plain Serve loads no model code of torch's; ``serve.llm``, the
+    HTTP proxy and the trainer load nothing of FORBIDDEN (aiohttp
+    included: the card's machine lacks it)."""
     code = ("import sys, ray_tpu_torch.serve; "
             "plain = 'ray_tpu_torch.models.gpt' in sys.modules; "
-            "import ray_tpu_torch.serve.llm; "
+            "import ray_tpu_torch.serve.llm, ray_tpu_torch.serve.http_proxy, "
+            "ray_tpu_torch.serve.frontdoor.sse, ray_tpu_torch.train, "
+            "ray_tpu_torch.air; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN + ('aiohttp',)!r}]; print(plain, bad); "
+            f"{FORBIDDEN!r}]; print(plain, bad); "
             "sys.exit(1 if bad or plain else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

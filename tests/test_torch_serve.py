@@ -510,9 +510,21 @@ def test_warmup_burst_from_a_running_event_loop(ckpt, jax_runs):
         server.engine.close()
 
 
-def test_serve_http_proxy_is_refused_naming_the_roadmap():
-    from ray_tpu_torch.serve.api import _ensure_proxy
-    from ray_tpu_torch.serve.config import HTTPOptions
-    with pytest.raises(RuntimeError, match="ROADMAP.md, Queue 1, item 3b"):
-        _ensure_proxy(HTTPOptions())
+def test_serve_http_proxy_is_refused_naming_the_roadmap(cluster):
+    """The name is the first slice's, which refused the proxy naming the
+    ROADMAP item.  The front door is ported now (tests/test_torch_http.py
+    holds it against ray_tpu's): no refusal is left, and asking for the
+    proxy starts one that answers."""
+    import urllib.request
 
+    from ray_tpu_torch.serve import api
+    from ray_tpu_torch.serve.config import HTTPOptions
+    assert not hasattr(api, "NO_HTTP_PROXY")
+    cluster.use()
+    api._ensure_proxy(HTTPOptions(port=0))
+    proxy = ray_tpu_torch.get_actor(api.PROXY_NAME,
+                                    namespace=SERVE_NAMESPACE)
+    host, port = _get(proxy.address.remote())
+    with urllib.request.urlopen(f"http://{host}:{port}/-/healthz",
+                                timeout=TIMEOUT) as resp:
+        assert resp.read() == b"ok"
