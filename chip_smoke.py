@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the GPT, MoE,
-encoder and vision families, the runtime, Serve, the trainer and the
-HTTP front door) on one NVIDIA H100 and hold its CUDA kernels against
-their plain PyTorch versions.
+encoder and vision families, the runtime, Serve, the trainer, the
+HTTP front door, batch inference over a Dataset and Tune sweeps) on one
+NVIDIA H100 and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -133,6 +134,28 @@ package.  Phases, one JSON line each:
               parameters bitwise equal after every step, 4 / 2 / 2
               K1 / K2 / K3 per step on each rank, the grad_allreduce ms
               per step; no process is left after shutdown().
+     air_batch  batch inference and a sweep on the port's runtime, in a
+              session of its own: (a) ViT-B/16 at full size, random
+              weights from the seed in a directory checkpoint
+              (predictor_checkpoint), scores 4096 random 224 px images
+              (from_numpy, 16 blocks of 256; a BatchMapper scales them
+              to fp32 in [0, 1]) through BatchPredictor.predict in two
+              actors on half the card each: every row comes back, K1
+              launches 12 x 16 times in the actors at [256, 196, 12,
+              64] non-causal and no other kernel launches, the first
+              256 rows' logits equal the driver's forward on the same
+              images, and a scoring actor that leases no card raises;
+              images/s beside the driver's, each actor's start (fork,
+              CUDA, weights) and its stream busy share; (b) Tuner runs
+              JaxTrainer on gpt-small at depth 2 once for each of four
+              learning rates under ASHA (grace 2, reduction 2, max_t 8),
+              two trials at a time on half the card each, reading batch
+              8 x 1024 from a Dataset shard: 4 / 2 / 2 K1 / K2 / K3 per
+              step in every trial's worker, every first loss equal to
+              the driver's make_train step, two trials overlapping and
+              never three, the later trials starting once ASHA freed a
+              half card, the best trial's checkpoint reproducing its
+              loss in the driver; no process is left after shutdown().
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
@@ -2329,6 +2352,502 @@ def air_phase(dev, train: dict, served: dict) -> dict:
     return out
 
 
+# Batch inference and sweeps on the port's runtime: BatchPredictor scores
+# ViT-B/16 over a Dataset in a pool of half-card actors, and Tuner runs
+# JaxTrainer once per trial with ASHA
+PREDICT_MODEL = "vit-b16"
+PREDICT_IMAGES, PREDICT_BLOCKS = 4096, 16
+PREDICT_BATCH = 256
+PREDICT_WORKERS = 2
+PREDICT_TIMED = 4                        # driver batches timed
+TUNE_LAYERS = 2
+TUNE_LRS = (3e-3, 1e-3, 3e-4, 1e-4)     # the grid's order of trials
+TUNE_ROWS, TUNE_BATCH = 64, 8            # 8 steps of 8 x 1024 an epoch
+TUNE_ASHA = dict(grace_period=2, reduction_factor=2, max_t=8)
+TUNE_CKPT_STEPS = (2, 4, 8)              # ASHA's rungs and its max_t
+TUNE_CONCURRENT = 2
+# the sweep's loss gates (every trial's first loss against the driver's
+# step, the best checkpoint's loss against its trial's): the same kernels
+# on the same batch from the same seed, so a few fp32 ulps at most
+# (equal bit for bit on the card so far); far tighter than the closest
+# two losses of one trial (5e-5 relative apart), so a checkpoint of
+# another step or trial, or another batch, fails
+TUNE_LOSS_RTOL = 1e-6
+
+
+def counted_predictor_class():
+    """``JaxPredictor`` that reports, beside each batch's logits, what
+    the scoring actor did: its pid, each kernel's launches during the
+    batch (K1's at the ViT shape apart), the batch's stream time between
+    two CUDA events and its host span, and how the actor started (host
+    clock: ``from_checkpoint`` entered, CUDA up, the weights on the
+    card).  The counts are set to 0 once the predictor is built.  It
+    drops the input column, so the output holds logits, not images."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private.device import resolve_device
+    from ray_tpu_torch.train import JaxPredictor
+
+    class CountedPredictor(JaxPredictor):
+        _times: dict = {}
+
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            times = cls._times
+            times["init_at"] = time.time()
+            times["process_start_at"] = _process_start()
+            dev = resolve_device(kwargs.get("device"))  # raises: no card
+            torch.empty(1, device=dev)       # the context, now
+            torch.cuda.synchronize(dev)
+            times["cuda_at"] = time.time()
+            p = super().from_checkpoint(checkpoint, **kwargs)
+            torch.cuda.synchronize(dev)
+            times["weights_at"] = time.time()
+            for kernel in kernel_counters().values():
+                kernel.launches = 0
+            return p
+
+        def predict(self, batch, **kwargs):
+            kernels = kernel_counters()
+            before = {n: k.launches for n, k in kernels.items()}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.time()
+            with FlashShapes() as shapes:
+                start.record()
+                out = super().predict(batch, **kwargs)
+                end.record()
+            end.synchronize()
+            t1 = time.time()
+            logits = out[self.output_column]
+            delta = {n: k.launches - before[n] for n, k in kernels.items()}
+            seq = self.model.cfg.num_patches
+            cols = {"pid": os.getpid(), "t0": t0, "t1": t1,
+                    "stream_ms": start.elapsed_time(end),
+                    "k1_at_shape": shapes.calls.get(
+                        f"fwd q{seq} kv{seq} full", 0),
+                    "rows_in_batch": len(logits),
+                    **{f"launches_{n}": v for n, v in delta.items()},
+                    **{f"start_{k}": v for k, v in self._times.items()}}
+            return {self.output_column: logits,
+                    **{k: np.full(len(logits), v) for k, v in cols.items()}}
+
+    return CountedPredictor
+
+
+def _process_start() -> float:
+    """This process's start on the host clock (``/proc``, in clock
+    ticks since boot)."""
+    import os
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(ln.split()[1]) for ln in f
+                    if ln.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _scale_images(batch):
+    """The BatchMapper's function: uint8 images to fp32 in [0, 1]."""
+    import numpy as np
+    return {"features": batch["data"].astype(np.float32) / 255.0}
+
+
+def air_tune_config(n_layers: int = TUNE_LAYERS):
+    from ray_tpu_torch.models.configs import get_config
+    return get_config("gpt-small", n_layers=n_layers, max_seq_len=1024,
+                      remat=True, remat_policy="dots",
+                      attention_impl="flash")
+
+
+def air_tune_optimizer(lr: float):
+    from ray_tpu_torch.train.step import OptimizerConfig
+    # no warmup: from the first update on, the trials' losses part, so
+    # ASHA has something to cut at its first rung
+    return OptimizerConfig(learning_rate=lr, warmup_steps=0,
+                           decay_steps=1000)
+
+
+def air_tune_loop(config):
+    """One trial's train loop, in its trainer's worker on half a card:
+    gpt-small at ``n_layers`` from the seed, AdamW at the trial's ``lr``,
+    batches of ``batch`` rows read from the ``train`` dataset shard.
+    Each step reports the loss, this process's kernel launches, its
+    host span and ``history`` (every report so far).  At the steps
+    ``ckpt_steps`` the report carries a torch checkpoint of the fp32
+    parameters the step's loss was computed with (saved before the
+    step)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import Checkpoint, session
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.train.step import make_train
+
+    dev = train.get_device()
+    lr = config["lr"]
+    cfg = air_tune_config(config["n_layers"])
+    model = GPT(cfg, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(
+        config["seed"]))
+    init_fn, step_fn = make_train(model, air_tune_optimizer(lr))
+    state = init_fn()
+    kernels = kernel_counters()
+    history = []
+    shard = session.get_dataset_shard("train")
+    batches = shard.iter_batches(batch_size=config["batch"],
+                                 batch_format="numpy", drop_last=True)
+    for step, batch in enumerate(batches, start=1):
+        tokens = torch.from_numpy(np.array(batch["data"])).to(dev)
+        ckpt = None
+        if step in config["ckpt_steps"]:
+            ckpt = Checkpoint.from_torch(
+                {"params": {k: v.detach().float()
+                            for k, v in model.state_dict().items()}},
+                metrics={"step": step, "lr": lr},
+                path=os.path.join(config["ckpt_dir"], f"lr_{lr:g}",
+                                  f"step_{step}"))
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        state, m = step_fn(state, {"tokens": tokens})
+        loss = float(m["loss"])
+        torch.cuda.synchronize(dev)
+        out = {"step": step, "loss": loss, "lr": lr, "t0": t0,
+               "t1": time.time(),
+               "launches": {n: k.launches - before[n]
+                            for n, k in kernels.items()},
+               "pid": os.getpid(),
+               "device_name": torch.cuda.get_device_name(dev),
+               "cuda_visible_devices":
+                   os.environ.get("CUDA_VISIBLE_DEVICES")}
+        history.append(out)
+        session.report(dict(out, history=list(history)), checkpoint=ckpt)
+
+
+def air_batch_launches(ab: dict, kind: str) -> dict:
+    """Phase air_batch's launches of kernel ``kind`` by path: the scoring
+    actors, and every trial's trainer worker together."""
+    return {"air_predict": ab["predict"]["launches"][kind],
+            "air_tune": ab["tune"]["launches"][kind]}
+
+
+def _predict_phase(dev, work: str) -> dict:
+    """Part (a) of phase air_batch, in a running session."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.data import BatchMapper
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.vit import ViT, get_vit_config
+    from ray_tpu_torch.train import (BatchPredictor, JaxPredictor,
+                                     predictor_checkpoint)
+
+    cfg = get_vit_config(PREDICT_MODEL)
+    model = ViT(cfg, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    t0 = time.perf_counter()
+    ckpt = predictor_checkpoint(functools.partial(ViT, cfg),
+                                model.state_dict(),
+                                path=os.path.join(work, "vit"))
+    save_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (PREDICT_IMAGES, cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    ds = rd.from_numpy(np.split(images, PREDICT_BLOCKS))
+    put_s = time.perf_counter() - t0
+    prep = BatchMapper(_scale_images)
+    cls = counted_predictor_class()
+    out = {"model": PREDICT_MODEL, "images": PREDICT_IMAGES,
+           "blocks": PREDICT_BLOCKS, "batch_size": PREDICT_BATCH,
+           "workers": PREDICT_WORKERS, "gpu_per_worker": 0.5,
+           "checkpoint_save_s": save_s, "from_numpy_s": put_s,
+           "checkpoint_bytes": sum(
+               os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+               os.walk(ckpt.to_directory()) for f in fs)}
+
+    # a scoring actor that leases no card refuses to score on the CPU
+    tiny = rd.from_numpy([images[:2]])
+    try:
+        BatchPredictor.from_checkpoint(ckpt, cls).predict(
+            prep.transform(tiny), batch_size=2, min_scoring_workers=1,
+            max_scoring_workers=1).to_numpy()
+        refused = None
+    except Exception as e:     # the actor's error, raised here
+        refused = f"{type(e).__name__}: {e}"
+    check(refused is not None and "no CUDA device" in refused,
+          f"a scoring actor without a GPU lease scored: {refused}")
+    out["no_gpu_refused"] = refused.splitlines()[-1][:300]
+
+    t_predict = time.time()
+    t0 = time.perf_counter()
+    scored = BatchPredictor.from_checkpoint(ckpt, cls).predict(
+        prep.transform(ds), batch_size=PREDICT_BATCH,
+        min_scoring_workers=PREDICT_WORKERS,
+        max_scoring_workers=PREDICT_WORKERS, num_gpus_per_worker=0.5)
+    got = scored.to_numpy()
+    wall = time.perf_counter() - t0
+    logits = got.get("predictions")
+    check(logits is not None and logits.shape == (PREDICT_IMAGES,
+                                                  cfg.num_classes),
+          f"predict returned {None if logits is None else logits.shape}")
+    check(bool(np.isfinite(logits).all()), "non-finite logits")
+    firsts = np.arange(0, PREDICT_IMAGES, PREDICT_BATCH)
+    batches = [{k: got[k][i] for k in got if k != "predictions"}
+               for i in firsts]
+    check(all(b["rows_in_batch"] == PREDICT_BATCH for b in batches),
+          f"batch rows {[b['rows_in_batch'] for b in batches]}")
+    launches = {n: int(sum(b[f"launches_{n}"] for b in batches))
+                for n in kernel_counters()}
+    want = {n: 0 for n in launches}
+    want["flash_fwd"] = cfg.n_layers * len(batches)
+    check(launches == want,
+          f"scoring actors' launches {launches} != {want}")
+    at_shape = int(sum(b["k1_at_shape"] for b in batches))
+    check(at_shape == want["flash_fwd"],
+          f"K1 at [{PREDICT_BATCH}, {cfg.num_patches}, {cfg.n_heads}, "
+          f"{cfg.d_model // cfg.n_heads}] non-causal: {at_shape} of "
+          f"{want['flash_fwd']}")
+    pids = sorted({int(b["pid"]) for b in batches})
+    check(len(pids) == PREDICT_WORKERS, f"scoring actors {pids}")
+
+    # the same model in the driver, on the same images
+    driver = JaxPredictor.from_checkpoint(ckpt, device=dev)
+    first = _scale_images({"data": images[:PREDICT_BATCH]})
+    want_logits = driver.predict(first)["predictions"]
+    cmp_ = compare(torch.from_numpy(logits[:PREDICT_BATCH]),
+                   torch.from_numpy(want_logits))
+    check(cmp_["within_tol"] and cmp_["finite"],
+          f"scored logits against the driver's: {cmp_}")
+    timed = [_scale_images({"data": images[i * PREDICT_BATCH:
+                                           (i + 1) * PREDICT_BATCH]})
+             for i in range(PREDICT_TIMED)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for b in timed:
+        driver.predict(b)
+    driver_s = time.perf_counter() - t0
+    del driver
+    torch.cuda.empty_cache()
+
+    actors = {}
+    for pid in pids:
+        mine = [b for b in batches if int(b["pid"]) == pid]
+        span = max(b["t1"] for b in mine) - min(b["t0"] for b in mine)
+        s = mine[0]
+        actors[str(pid)] = {
+            "batches": len(mine),
+            "stream_ms": [float(b["stream_ms"]) for b in mine],
+            "busy_share": sum(b["stream_ms"] for b in mine) / 1e3 / span,
+            "span_s": span,
+            # from predict(): the process's start (fork; negative for a
+            # worker the raylet kept from an earlier lease), then its
+            # imports and the first scaled block, CUDA, the weights
+            "start": {
+                "process_start_s": s["start_process_start_at"] - t_predict,
+                "to_first_block_s":
+                    s["start_init_at"] - s["start_process_start_at"],
+                "cuda_s": s["start_cuda_at"] - s["start_init_at"],
+                "weights_s": s["start_weights_at"] - s["start_cuda_at"],
+                "ready_s": s["start_weights_at"] - t_predict}}
+    out.update(wall_s=wall, images_s=PREDICT_IMAGES / wall,
+               driver_images_s=PREDICT_TIMED * PREDICT_BATCH / driver_s,
+               launches=launches, k1_at_shape=at_shape,
+               logits_vs_driver=cmp_, actors=actors)
+    return out
+
+
+def _tune_phase(dev, work: str) -> dict:
+    """Part (b) of phase air_batch, in a running session."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models.convert import init_weights
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.train import JaxTrainer
+    from ray_tpu_torch.train.step import lm_loss_fn, make_train
+
+    cfg = air_tune_config()
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab_size, (TUNE_ROWS, 1025))
+    steps = TUNE_ROWS // TUNE_BATCH
+    ds = rd.from_numpy(np.split(tokens, steps))
+    trainer = JaxTrainer(
+        air_tune_loop,
+        train_loop_config=dict(seed=SEED, n_layers=TUNE_LAYERS,
+                               batch=TUNE_BATCH, ckpt_dir=work,
+                               ckpt_steps=TUNE_CKPT_STEPS),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     devices_per_worker=0.5),
+        datasets={"train": ds})
+    tuner = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            max_concurrent_trials=TUNE_CONCURRENT,
+            scheduler=tune.ASHAScheduler(metric="loss", mode="min",
+                                         **TUNE_ASHA)),
+        run_config=RunConfig(name="air_tune", storage_path=work))
+    t0 = time.perf_counter()
+    grid = tuner.fit()
+    sweep_s = time.perf_counter() - t0
+    check(not grid.errors, f"trials failed: {grid.errors}")
+    check(len(grid) == len(TUNE_LRS), f"{len(grid)} trials")
+    trials = []
+    for r in grid:
+        hist = r.metrics["history"]
+        check([h["step"] for h in hist] == list(range(1, len(hist) + 1))
+              and hist[-1]["step"] == r.metrics["step"],
+              f"trial lr {r.metrics['lr']}: steps "
+              f"{[h['step'] for h in hist]}")
+        trials.append({
+            "lr": r.metrics["lr"], "steps": len(hist),
+            "stop": "max_t" if len(hist) == TUNE_ASHA["max_t"] else "asha",
+            "start": hist[0]["t0"], "end": hist[-1]["t1"],
+            "losses": [h["loss"] for h in hist],
+            "pid": hist[0]["pid"], "hist": hist})
+    trials.sort(key=lambda t: t["start"])
+    check(all(t["steps"] >= 1 for t in trials)
+          and {t["lr"] for t in trials} == set(TUNE_LRS),
+          f"trials {[(t['lr'], t['steps']) for t in trials]}")
+    kernels = kernel_counters()
+    per_step = {n: 0 for n in kernels}
+    per_step.update({n: v * TUNE_LAYERS for n, v in AIR_PER_STEP.items()})
+    for t in trials:
+        for h in t["hist"]:
+            check(h["launches"] == per_step,
+                  f"trial lr {t['lr']} step {h['step']}: launches "
+                  f"{h['launches']} != {per_step}")
+        check(t["hist"][0]["device_name"] == torch.cuda.get_device_name(dev)
+              and t["hist"][0]["cuda_visible_devices"] not in (None, ""),
+              f"trial lr {t['lr']} ran on {t['hist'][0]['device_name']} "
+              f"seeing {t['hist'][0]['cuda_visible_devices']!r}")
+    # concurrency: two trials overlap, never more; a later trial starts
+    # only once an earlier one has ended (ASHA freed its half card)
+    events = sorted([(t["start"], 1) for t in trials]
+                    + [(t["end"], -1) for t in trials])
+    live, most = 0, 0
+    for _, d in events:
+        live += d
+        most = max(most, live)
+    check(most == TUNE_CONCURRENT,
+          f"at most {most} trials ran at once, not {TUNE_CONCURRENT}")
+    for t in trials[TUNE_CONCURRENT:]:
+        check(any(o["end"] <= t["start"] for o in trials if o is not t),
+              f"trial lr {t['lr']} started before any trial ended")
+    check(any(t["stop"] == "asha" for t in trials),
+          f"ASHA stopped no trial: "
+          f"{[(t['lr'], t['losses']) for t in trials]}")
+    _wait_gone([t["pid"] for t in trials])
+
+    # the first step is the same for every lr, and the driver's
+    model = GPT(cfg, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    batch = {"tokens": torch.from_numpy(tokens[:TUNE_BATCH]).to(dev)}
+    init_fn, step_fn = make_train(model, air_tune_optimizer(TUNE_LRS[0]))
+    _, m = step_fn(init_fn(), batch)
+    first = float(m["loss"])
+    del init_fn, step_fn, m
+    firsts = [t["losses"][0] for t in trials]
+    check(all(abs(x - first) / abs(first) <= TUNE_LOSS_RTOL
+              for x in firsts),
+          f"first losses {firsts} against the driver's {first}")
+
+    # the best trial's checkpoint reproduces its loss in the driver
+    best = grid.get_best_result()
+    k = best.metrics["step"]
+    ckpt_step = best.checkpoint.metrics().get("step")
+    check(ckpt_step == k, f"best result at step {k}, checkpoint of step "
+                          f"{ckpt_step}")
+    model.load_state_dict(best.checkpoint.to_torch()["params"])
+    rows = tokens[(k - 1) * TUNE_BATCH:k * TUNE_BATCH]
+    with torch.no_grad():
+        loss, _ = lm_loss_fn(model, {"tokens": torch.from_numpy(
+            rows).to(dev)}, model.cfg.z_loss)
+    again = float(loss)
+    check(abs(again - best.metrics["loss"]) / abs(again)
+          <= TUNE_LOSS_RTOL,
+          f"best checkpoint's loss {again} against the trial's "
+          f"{best.metrics['loss']}")
+    del model
+    torch.cuda.empty_cache()
+    t_first = trials[0]["start"]
+    launches = {n: sum(h["launches"][n] for t in trials for h in t["hist"])
+                for n in kernels}
+    return {
+        "model": "gpt-small", "n_layers": TUNE_LAYERS, "rows": TUNE_ROWS,
+        "batch": TUNE_BATCH, "seq": 1024, "lrs": list(TUNE_LRS),
+        "asha": TUNE_ASHA, "concurrent": TUNE_CONCURRENT,
+        "gpu_per_trial": 0.5, "sweep_s": sweep_s,
+        "trials": [{"lr": t["lr"], "steps": t["steps"], "stop": t["stop"],
+                    "start_s": t["start"] - t_first,
+                    "end_s": t["end"] - t_first, "losses": t["losses"],
+                    "step_ms": [(h["t1"] - h["t0"]) * 1e3
+                                for h in t["hist"]]} for t in trials],
+        "driver_first_loss": first, "best": {
+            "lr": best.metrics["lr"], "step": k,
+            "loss": best.metrics["loss"], "driver_loss": again},
+        "launches": launches, "launches_per_step": per_step}
+
+
+def air_batch_phase(dev) -> dict:
+    """Batch inference and a sweep on the port's runtime, in a session of
+    its own, as the module docstring says: (a) BatchPredictor scores
+    ViT-B/16 over a Dataset in two half-card actors, (b) Tuner runs
+    JaxTrainer on gpt-small once per learning rate under ASHA, two
+    half-card trials at a time."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_air_batch_")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8, object_store_memory=6 << 30)
+    node = ray_tpu_torch.api._node
+    out = {"init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir}
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU") == 1.0,
+              "the raylet did not find the GPU")
+        out["predict"] = _predict_phase(dev, work)
+        out["tune"] = _tune_phase(dev, work)
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.perf_counter() - t0
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
 def attn_bound(kind: str, q, k, causal: bool) -> dict:
     """Least time for one flash or splash kernel call (``kind`` ends in
     fwd, bwd_dq or bwd_dkv): each input read once and each output
@@ -2738,7 +3257,8 @@ def flash_phase(dev) -> dict:
     """The flash kernels at the training slice's shapes and at gptj-6b's
     (16 heads of 256, batch 2 x 1024), ViT-B/16's (VIT_BATCH x 196, 12
     heads of 64, non-causal), gpt-large's and mixtral's, all timed; at
-    BERT's and T5's shapes (PATH_SHAPES), untimed; at a GQA 32/8
+    BERT's and T5's shapes and the air_batch phase's (PATH_SHAPES),
+    untimed; at a GQA 32/8
     head_dim-128 shape with S not a multiple of the 64-row tiles, at fp32
     / non-causal / q_len != kv_len shapes, and at head_dim 256 (GQA and
     ragged, non-causal, low logits, and fp32)."""
@@ -2754,7 +3274,9 @@ def flash_phase(dev) -> dict:
     # patches (non-causal, 3 x 64 + 4 rows), gpt-large's lean run and
     # mixtral's GQA 32/8 at head_dim 128; untimed: BERT's, T5's
     # cross-attention (q DECODER_SEQ over kv ENCODER_SEQ, non-causal) and
-    # T5's decoder self-attention
+    # T5's decoder self-attention, and the air_batch phase's: ViT-B/16
+    # scored in batches of PREDICT_BATCH, gpt-small's sweep in batches
+    # of TUNE_BATCH
     at_path = {label: attention_case(dev, gen, "flash", *shape, bf16,
                                      causal, skv, timed=timed)
                for label, shape, causal, skv, timed in (
@@ -2766,7 +3288,11 @@ def flash_phase(dev) -> dict:
                    ("t5_cross", (ENCODER_BATCH, DECODER_SEQ, 12, 12, 64),
                     False, ENCODER_SEQ, False),
                    ("t5_self", (ENCODER_BATCH, DECODER_SEQ, 12, 12, 64),
-                    True, None, False))}
+                    True, None, False),
+                   ("air_predict", (PREDICT_BATCH, 196, 12, 12, 64), False,
+                    None, False),
+                   ("air_tune", (TUNE_BATCH, 1024, 12, 12, 64), True, None,
+                    False))}
     torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "flash", *c) for c in (
         (2, 2000, 32, 8, 128, bf16, True),
@@ -3174,7 +3700,8 @@ RESNET_RUNS = (("resnet50_cifar10", 32, 10, 1024),
 ENCODER_BATCH, ENCODER_SEQ, DECODER_SEQ = 16, 512, 128
 # flash_phase's shapes of the training paths, as the kernel rows name
 # them (the first three timed)
-PATH_SHAPES = ("vit", "large", "mixtral", "bert", "t5_cross", "t5_self")
+PATH_SHAPES = ("vit", "large", "mixtral", "bert", "t5_cross", "t5_self",
+               "air_predict", "air_tune")
 GREEDY_PROMPTS, GREEDY_TOKENS = 4, 32
 # the greedy decode's query and key projections are scaled by this over
 # init_weights' draw (attention logits by its square), see
@@ -3653,6 +4180,10 @@ def main() -> int:
     emit({"phase": "air", **air})
     torch.cuda.empty_cache()
 
+    air_batch = air_batch_phase(dev)
+    emit({"phase": "air_batch", **air_batch})
+    torch.cuda.empty_cache()
+
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
     torch.cuda.empty_cache()
@@ -3713,7 +4244,8 @@ def main() -> int:
             "moe_slice_dense": moe_slice["dense"]["paged_kernel_launches"],
             **{path: run["launches"]["paged_attention"]
                for path, run in family_runs.items()},
-            **air_launches(air, "paged_attention")},
+            **air_launches(air, "paged_attention"),
+            **air_batch_launches(air_batch, "paged_attention")},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -3747,7 +4279,8 @@ def main() -> int:
                 "moe_train": moe_train["launches"][kind],
                 **{path: fam["launches"][kind]
                    for path, fam in family_runs.items()},
-                **air_launches(air, kind)}
+                **air_launches(air, kind),
+                **air_batch_launches(air_batch, kind)}
             for label in PATH_SHAPES:
                 at = phase.get(f"{label}_shape")
                 if at is not None:
@@ -3780,6 +4313,7 @@ def main() -> int:
          "dense_slice": dense, "prefix_handoff": prefix,
          "runtime": runtime, "serve": served, "flash": flash,
          "splash": splash, "train": train, "air": air,
+         "air_batch": air_batch,
          "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,

@@ -2698,6 +2698,10 @@ class CoreWorker:
             "strategy": strategy,
             "runtime_env": runtime_env or self.job_runtime_env,
             "language": language,
+            # an actor made by an actor dies with it (Ray's owner fate
+            # sharing); a detached one outlives its maker
+            "owner_actor_id": None if detached
+            else getattr(self, "current_actor_id", None),
         }, timeout=CONFIG.actor_creation_timeout_s)
         return actor_id
 

@@ -1308,6 +1308,8 @@ class GcsServer:
                 "strategy": p.get("strategy"),  # node_affinity/spread dict
                 "language": p.get("language"),  # None/python, or "cpp"
                 "runtime_env": p.get("runtime_env"),
+                # the actor whose process made this one: it dies with it
+                "owner_actor_id": p.get("owner_actor_id"),
             }
             self._actors[aid] = entry
             if name:
@@ -1576,6 +1578,30 @@ class GcsServer:
         if restart:
             logger.info("restarting actor %s (%s)", aid[:8], reason)
             self._schedule_actor(aid)
+        else:
+            self._reap_owned(aid)
+
+    def _reap_owned(self, owner: str) -> None:
+        """An actor is dead for good: the placement groups it made are
+        removed (their actors die with them) and the actors it made die,
+        down the tree, unless detached (Ray's owner fate sharing;
+        gcs_actor_manager.cc OnWorkerDead -> DestroyActor of the owned
+        actors).  Without it a trainer's worker leasing a card outlives
+        the trial actor Tune kills, and the card is never freed."""
+        with self._lock:
+            pgs = [pgid for pgid, pg in self._placement_groups.items()
+                   if pg.get("owner_actor_id") == owner]
+            kids = [aid for aid, a in self._actors.items()
+                    if a.get("owner_actor_id") == owner
+                    and not a.get("detached") and a["state"] != DEAD]
+        for pgid in pgs:
+            self._rpc_remove_placement_group(None, {"pg_id": pgid})
+            self._mark_dirty(("_placement_groups", pgid),
+                             ("_named_actors", None))
+        for aid in kids:
+            self._rpc_kill_actor(None, {"actor_id": aid},
+                                 reason=f"owner {owner[:8]} died")
+            self._mark_dirty(("_actors", aid), ("_named_actors", None))
 
     def _rpc_get_actor(self, conn, p):
         aid = p.get("actor_id")
@@ -1592,14 +1618,15 @@ class GcsServer:
         with self._lock:
             return [dict(a, spec=None) for a in self._actors.values()]
 
-    def _rpc_kill_actor(self, conn, p):
+    def _rpc_kill_actor(self, conn, p, reason: str = "killed via kill_actor"):
         aid = p["actor_id"]
         with self._lock:
             entry = self._actors.get(aid)
             if entry is None:
                 return {"ok": False}
+            was_dead = entry["state"] == DEAD
             entry["state"] = DEAD
-            entry["death_cause"] = "killed via kill_actor"
+            entry["death_cause"] = reason
             entry["max_restarts"] = 0
             addr = entry.get("address")
             node_conn = self._node_conns.get(entry.get("node_id") or "")
@@ -1613,6 +1640,8 @@ class GcsServer:
                 pass
         self._publish("actor", {"actor_id": aid, "state": DEAD,
                                 "reason": "killed"})
+        if not was_dead:
+            self._reap_owned(aid)
         return {"ok": True, "address": addr}
 
     # ----------------------------------------------------- placement groups
@@ -1626,6 +1655,7 @@ class GcsServer:
             "strategy": p.get("strategy", "PACK"),
             "name": p.get("name", ""), "placement": None,
             "job_id": p.get("job_id"),
+            "owner_actor_id": p.get("owner_actor_id"),
         }
         with self._lock:
             existing = self._placement_groups.get(pgid)

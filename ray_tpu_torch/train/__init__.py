@@ -4,12 +4,13 @@ one-device train step (counterpart of ray_tpu/train/).
 Analog of Ray's python/ray/train: BaseTrainer / DataParallelTrainer
 drive a WorkerGroup; JaxTrainer (ray_tpu's name, kept) trains on each
 worker's card with ``make_train`` and syncs gradients over the host
-collective; TorchTrainer keeps DDP over gloo; ``train.step`` holds the
-step builder.  Not ported yet: ray_tpu's ``get_mesh``, ``LayoutPlan``
-and ``train/sharded/`` (multi-device), ``BatchPredictor`` /
-``JaxPredictor`` (they wait for ``data/``), ``HuggingFaceTrainer`` and
-``GBDTTrainer`` (transformers and xgboost are not on the card's
-machine); ROADMAP.md, Queue 1, item 4.
+collective; TorchTrainer keeps DDP over gloo; ``train.step`` holds
+``make_train``; ``Predictor`` / ``JaxPredictor`` / ``BatchPredictor``
+score a ``data.Dataset`` in an actor pool.  Not ported yet: ray_tpu's
+``get_mesh``, ``LayoutPlan`` and ``train/sharded/`` (multi-device),
+``HuggingFaceTrainer``, ``GBDTTrainer`` and ``SklearnPredictor``
+(transformers, sklearn and xgboost are not on the card's machine);
+ROADMAP.md, Queue 1, item 4.
 """
 
 from ray_tpu_torch.train.base_trainer import (BackendConfig,  # noqa: F401
@@ -19,6 +20,9 @@ from ray_tpu_torch.train.base_trainer import (BackendConfig,  # noqa: F401
 from ray_tpu_torch.train.jax_trainer import (JaxConfig,  # noqa: F401
                                              JaxTrainer, PendingSync,
                                              sync_gradients)
+from ray_tpu_torch.train.predictor import (BatchPredictor,  # noqa: F401
+                                           JaxPredictor, Predictor,
+                                           predictor_checkpoint)
 from ray_tpu_torch.train.step import (OptimizerConfig,  # noqa: F401
                                       classification_loss_fn,
                                       lm_loss_chunked_fn, lm_loss_fn,
@@ -41,5 +45,6 @@ __all__ = [
     "TorchTrainer", "TorchConfig", "prepare_model", "prepare_data_loader",
     "WorkerGroup", "TrainWorker", "get_device", "make_train",
     "OptimizerConfig", "make_vision_train", "classification_loss_fn",
-    "lm_loss_fn", "lm_loss_chunked_fn",
+    "lm_loss_fn", "lm_loss_chunked_fn", "Predictor", "JaxPredictor",
+    "BatchPredictor", "predictor_checkpoint",
 ]

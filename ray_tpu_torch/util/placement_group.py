@@ -107,6 +107,9 @@ def placement_group(bundles: List[Dict[str, float]],
         "name": name,
         "lifetime": lifetime or "",
         "job_id": worker.job_id.hex(),
+        # removed when the actor that made it dies, unless detached
+        "owner_actor_id": None if lifetime == "detached"
+        else getattr(worker, "current_actor_id", None),
     })
     return PlacementGroup(pg_id, [dict(b) for b in bundles])
 

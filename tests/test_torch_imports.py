@@ -95,3 +95,17 @@ def test_serve_import_leaves_jax_and_aiohttp_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_data_and_tune_imports_leave_pandas_and_pyarrow_unloaded():
+    """``ray_tpu_torch.data``, ``.tune`` and the predictors load nothing
+    of FORBIDDEN, nor pandas or pyarrow (the card's machine has
+    neither: dict-of-numpy and list blocks carry the port's paths)."""
+    bad_names = FORBIDDEN + ("pandas", "pyarrow")
+    code = ("import sys, ray_tpu_torch.data, ray_tpu_torch.tune, "
+            "ray_tpu_torch.train.predictor; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{bad_names!r}]; print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
