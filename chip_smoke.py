@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (the GPT, MoE,
 encoder and vision families, the runtime, Serve, the trainer, the
-HTTP front door, batch inference over a Dataset and Tune sweeps) on one
+HTTP front door, batch inference over a Dataset, Tune sweeps and RL) on one
 NVIDIA H100 and hold its CUDA kernels against their plain PyTorch
 versions.
 
@@ -82,7 +82,8 @@ package.  Phases, one JSON line each:
               shape, at head_dim-256 GQA / ragged / full shapes, fp32 at
               head_dim 256 (all three kernels, timed), at
               fp32 / full / ragged shapes, with
-              q, k and v as strided views of one fused [B, S, H + 2 KVH,
+              the Decision Transformer's [64, 60, 4, 32] causal in fp32
+              and in bf16 (timed), q, k and v as strided views of one fused [B, S, H + 2 KVH,
               D] tensor, at S = 64 (one tile) and at 1 x 4096 (a long
               ring of kv tiles), and with rows whose logits all lie far
               below the exponent's range; kernel / plain / SDPA time
@@ -156,6 +157,28 @@ package.  Phases, one JSON line each:
               never three, the later trials starting once ASHA freed a
               half card, the best trial's checkpoint reproducing its
               loss in the driver; no process is left after shutdown().
+     rl       RL on the port's runtime, in a session of its own: (a)
+              PPO on CartPole-v1 at benchmarks/rl_perf.py's settings (2
+              rollout actors x 4 envs, fragment 125, batch 1000,
+              minibatch 250, 8 SGD iterations, lr 3e-4, entropy 0.01,
+              seed 0) with the learner on the card: episode_reward_mean
+              reaches 150 within 100,000 env steps, the first minibatch
+              step equals the same step on CPU copies (fp32, TF32 off),
+              the actors lease no GPU, start no CUDA and hold nothing of
+              JAX, save then restore gives the state back bit for bit,
+              no attention kernel launches; env steps to 150, wall,
+              sample and SGD ms per iteration; (b) IMPALA at the same
+              file's CartPole settings for 10 train() calls: every loss
+              finite, V-trace on the card equal to the CPU's on a
+              recorded fragment, env steps/s; (c) the Decision
+              Transformer at DTConfig's widths (d_model 128, 3 layers, 4
+              heads of 32, 60 tokens, batch 64, fp32) on a dataset that
+              collect_dataset writes and JsonReader reads back: the
+              first loss through K1-K3 equal to the plain attention's
+              from the same weights, K1, K2 and K3 n_layers times per
+              SGD step (K1 also n_layers per evaluate() forward), K4
+              and K5 never, the loss falling over two train() calls,
+              evaluate() finite; no process is left after shutdown().
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
@@ -426,15 +449,17 @@ def tc_usage(family: str) -> dict:
     """{"fwd" | "bwd_dq" | "bwd_dkv": {head_dim: {"registers",
     "local_bytes", "blocks_per_sm"}}} of the tensor-core forward, dQ and
     dK/dV kernels of ``family`` ("flash" or "splash") at head_dim 64, 128
-    and 256, as the CUDA runtime reports them: registers and local memory
-    (spills and stack) per thread, and resident blocks per SM."""
+    and 256 (and 32 for flash), as the CUDA runtime reports them:
+    registers and local memory (spills and stack) per thread, and
+    resident blocks per SM."""
     import ctypes
     from ray_tpu_torch.ops import flash_attention, splash
     lib = (flash_attention if family == "flash" else splash)._lib()
+    hds = (32, 64, 128, 256) if family == "flash" else (64, 128, 256)
     out = {}
     for kind, sym in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
         out[kind] = {}
-        for hd in (64, 128, 256):
+        for hd in hds:
             u = (ctypes.c_int * 3)()
             err = getattr(lib, f"rt_{family}_{sym}_usage")(hd, u)
             check(err == 0, f"{family} {kind} usage query: cudaError {err}")
@@ -2848,6 +2873,481 @@ def air_batch_phase(dev) -> dict:
     return out
 
 
+# Phase rl (see the module docstring): PPO on CartPole-v1 at
+# benchmarks/rl_perf.py's settings, the north-star row of RLlib's tuned
+# cartpole-ppo.yaml (episode_reward_mean >= 150 within 100k env steps);
+# IMPALA at the same file's CartPole settings for RL_IMPALA_ITERS train()
+# calls; the Decision Transformer at DTConfig's own widths (d_model 128,
+# 3 layers of 4 heads of 32, context 20 = 60 tokens, batch 64, fp32) on
+# DT_DATA_STEPS env steps of collect_dataset
+RL_PPO = dict(num_rollout_workers=2, num_envs_per_worker=4,
+              rollout_fragment_length=125, train_batch_size=1000,
+              sgd_minibatch_size=250, num_sgd_iter=8, lr=3e-4,
+              entropy_coeff=0.01, gamma=0.99)
+RL_IMPALA = dict(num_rollout_workers=2, num_envs_per_worker=4,
+                 rollout_fragment_length=50, lr=5e-4, entropy_coeff=0.01,
+                 gamma=0.99)
+RL_TARGET = 150.0
+RL_MAX_STEPS = 100_000
+RL_IMPALA_ITERS = 10
+# one PPO minibatch step on the card against the same step on CPU copies
+# of the weights, the optimizer state and the minibatch, fp32 with TF32
+# off: the two differ by summation order alone (~1e-7 relative), and a
+# wrong loss or update moves the loss or the weights by far more.  The
+# loss relative to the CPU's, each gradient tensor's error relative to
+# its largest element, the parameters after the step as one vector
+# (_ppo_step_check says why not per element), for the learner's real
+# step and for a replay of it on the card that also yields the
+# gradients.  V-trace on the card against the CPU: fp32 over a 50-step
+# recursion, atol and rtol 1e-5
+RL_STEP_RTOL = 1e-5
+VTRACE_TOL = 1e-5
+# DT's first loss through K1-K3 against the plain attention from the same
+# weights: each kernel output lies within FLASH_FP32_TOL of its plain
+# version (~1e-6 in practice), and the loss averages ~1000 tokens' NLL
+# through 3 layers; 1e-4 relative leaves room above the rounding
+DT_LOSS_RTOL = 1e-4
+DT_DATA_STEPS = 4000
+DT_TRAIN_CALLS = 2
+DT_BATCH, DT_CONTEXT, DT_HEADS, DT_HEAD_DIM = 64, 20, 4, 32
+
+
+def _timed(obj, name: str, bucket: list) -> None:
+    """Wrap ``obj.name`` (on the instance) to append each call's wall
+    seconds to ``bucket``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            bucket.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapper)
+
+
+def _record_first(algo, rec: dict) -> None:
+    """Make ``algo._sgd_step`` keep host copies of its first call's
+    weights, optimizer state and batch, and of the weights and aux it
+    produced (the real step runs unchanged)."""
+    from ray_tpu_torch.rl.algorithm import to_host
+    real = algo._sgd_step
+
+    def step(opt_state, batch):
+        if rec:
+            return real(opt_state, batch)
+        rec.update(weights=algo.get_weights(), opt=to_host(opt_state),
+                   batch={k: v.cpu() for k, v in batch.items()})
+        opt_state, aux = real(opt_state, batch)
+        rec.update(after=algo.get_weights(),
+                   aux={k: float(v) for k, v in aux.items()})
+        return opt_state, aux
+    algo._sgd_step = step
+
+
+def _ppo_replay(algo, rec: dict, device) -> dict:
+    """The recorded first minibatch step again on copies of the network,
+    the optimizer state and the minibatch on ``device``: its aux, its
+    gradients and the weights it gives, as host numpy."""
+    import copy
+
+    import torch
+    from ray_tpu_torch.rl import models as M
+    from ray_tpu_torch.rl.algorithm import to_device
+    from ray_tpu_torch.rl.policy import load_weights, module_weights
+    from ray_tpu_torch.rl.ppo import make_ppo_optimizer, make_ppo_sgd_step
+    model = copy.deepcopy(algo.model).to(device)
+    load_weights(model, rec["weights"])
+    tx, grads = make_ppo_optimizer(algo.config), {}
+    update = tx.update
+
+    def capture(params, g, state):
+        grads.update({n: t.detach().cpu().numpy() for n, t in g.items()})
+        return update(params, g, state)
+    tx.update = capture
+    step = make_ppo_sgd_step(model, M.categorical_logp,
+                             M.categorical_entropy, tx, algo.config)
+    _, aux = step(to_device(rec["opt"], device),
+                  {k: v.to(device) for k, v in rec["batch"].items()})
+    return {"aux": {k: float(v) for k, v in aux.items()}, "grads": grads,
+            "after": module_weights(model)}
+
+
+def _ppo_step_check(algo, rec: dict, dev) -> dict:
+    """The learner's real first minibatch step, and a replay of it on the
+    card that also yields the gradients, against CPU copies: the loss
+    relative to the CPU's; each gradient tensor's largest error relative
+    to its largest element; the parameters after the step as one vector,
+    ||card - cpu|| / ||cpu||.  Per element, Adam's first step is
+    lr * g / (|g| + eps): an element whose gradient is near eps can take
+    any update in [-lr, lr], and the rounding of its gradient picks it,
+    so the parameters are compared as a whole.  Whether the real step
+    equals its card replay bit for bit is reported.  The aux values are
+    reported too (policy_loss and kl sit near 0 at the first step, where
+    relative errors say nothing)."""
+    import numpy as np
+    card = _ppo_replay(algo, rec, dev)
+    cpu = _ppo_replay(algo, rec, "cpu")
+    cpu_loss = cpu["aux"]["total_loss"]
+    norm = sum(float(np.sum(w ** 2)) for w in cpu["after"].values())
+
+    def param_rel_err(after):
+        diff = sum(float(np.sum((after[n] - w) ** 2))
+                   for n, w in cpu["after"].items())
+        return (diff / norm) ** 0.5
+
+    return {
+        "rows": int(rec["batch"]["obs"].shape[0]),
+        "card_loss": rec["aux"]["total_loss"],
+        "replay_card_loss": card["aux"]["total_loss"],
+        "cpu_loss": cpu_loss,
+        "real_loss_rel_err": abs(rec["aux"]["total_loss"] - cpu_loss)
+        / abs(cpu_loss),
+        "loss_rel_err": abs(card["aux"]["total_loss"] - cpu_loss)
+        / abs(cpu_loss),
+        "aux_abs_err": {k: abs(card["aux"][k] - v)
+                        for k, v in cpu["aux"].items()},
+        "grad_rel_err": max(
+            float(np.abs(card["grads"][n] - g).max()
+                  / max(float(np.abs(g).max()), 1e-30))
+            for n, g in cpu["grads"].items()),
+        "real_param_rel_err": param_rel_err(rec["after"]),
+        "param_rel_err": param_rel_err(card["after"]),
+        "param_max_abs_err": max(
+            float(np.abs(card["after"][n] - w).max())
+            for n, w in cpu["after"].items()),
+        "real_equals_card_replay": all(
+            np.array_equal(rec["after"][n], w)
+            for n, w in card["after"].items())}
+
+
+def _check_rollout_hosts(algo) -> list:
+    """Every rollout actor leases no GPU, never starts CUDA, keeps its
+    policy on the CPU and holds nothing of JAX or ray_tpu."""
+    import ray_tpu_torch as rt
+    infos = rt.get([w.host_info.remote() for w in algo.workers.workers])
+    for info in infos:
+        bad = sorted(set(info.pop("modules")) & set(RUNTIME_FORBIDDEN))
+        info["forbidden_loaded"] = bad
+        check(info["cuda_visible_devices"] == "" and
+              not info["cuda_initialized"] and
+              info["policy_device"] == "cpu" and not bad,
+              f"a rollout actor reaches CUDA or JAX: {info}")
+    return infos
+
+
+def _ppo_phase(dev) -> dict:
+    import math
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rl import PPOConfig
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    t_build = time.perf_counter()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(**{k: RL_PPO[k] for k in (
+                "num_rollout_workers", "num_envs_per_worker",
+                "rollout_fragment_length")})
+            .training(**{k: v for k, v in RL_PPO.items() if k not in (
+                "num_rollout_workers", "num_envs_per_worker",
+                "rollout_fragment_length")})
+            .debugging(seed=SEED).build())
+    out = {"build_s": time.perf_counter() - t_build}
+    try:
+        check(all(p.device.type == dev.type
+                  for p in algo.model.parameters()),
+              f"the PPO learner is not on {dev}")
+        rec, sample_s, sync_s, step_s = {}, [], [], []
+        _record_first(algo, rec)
+        _timed(algo, "gather_on_policy_batch", sample_s)
+        _timed(algo.workers, "sync_weights", sync_s)
+        _timed(algo, "training_step", step_s)
+        iters, best, reached, t0 = [], -math.inf, None, time.perf_counter()
+        while True:
+            r = algo.train()
+            reward = r["episode_reward_mean"]
+            best = max(best, reward)
+            iters.append({"timesteps_total": r["timesteps_total"],
+                          "episode_reward_mean": reward,
+                          "iter_ms": r["time_this_iter_s"] * 1e3,
+                          "sample_ms": sample_s[-1] * 1e3,
+                          "sgd_ms": (step_s[-1] - sample_s[-1]
+                                     - sync_s[-1]) * 1e3,
+                          "sync_ms": sync_s[-1] * 1e3,
+                          "total_loss": r["info"]["total_loss"]})
+            if reward >= RL_TARGET:
+                reached = r["timesteps_total"]
+                break
+            if r["timesteps_total"] >= RL_MAX_STEPS:
+                break
+        wall = time.perf_counter() - t0
+        out.update(
+            env_steps_to_target=reached, best_reward=best,
+            wall_s=wall, train_iters=len(iters),
+            env_steps_per_s=iters[-1]["timesteps_total"] / wall,
+            sample_ms_median=statistics.median(i["sample_ms"] for i in iters),
+            sgd_ms_median=statistics.median(i["sgd_ms"] for i in iters),
+            sync_ms_median=statistics.median(i["sync_ms"] for i in iters),
+            iters=iters)
+        check(reached is not None and reached <= RL_MAX_STEPS,
+              f"PPO did not reach episode_reward_mean {RL_TARGET} within "
+              f"{RL_MAX_STEPS} env steps (best {best})")
+        out["launches"] = {n: c.launches for n, c in counters.items()}
+        check(not any(out["launches"].values()),
+              f"a kernel launched on the PPO path: {out['launches']}")
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        check(not tf32, "TF32 matmuls are on: the step gate needs fp32")
+        out["first_step"] = step = _ppo_step_check(algo, rec, dev)
+        check(max(step["real_loss_rel_err"], step["loss_rel_err"],
+                  step["grad_rel_err"], step["real_param_rel_err"],
+                  step["param_rel_err"]) <= RL_STEP_RTOL,
+              f"PPO's first step on the card disagrees with the CPU: "
+              f"{step}")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+        # save, then other weights and moments, then restore: bit-equal
+        t1 = time.perf_counter()
+        ckpt = algo.save()
+        out["save_s"] = time.perf_counter() - t1
+        saved = algo.get_full_state()
+        algo.set_weights({n: v + 1 for n, v in algo.get_weights().items()})
+        algo.opt_state["mu"]["pi_0.weight"].add_(1.0)
+        algo.restore(ckpt)
+        back = algo.get_full_state()
+        same = all(np.array_equal(back["params"][n], v)
+                   for n, v in saved["params"].items()) and all(
+            np.array_equal(back["opt_state"][m][n], v)
+            for m in ("mu", "nu") for n, v in saved["opt_state"][m].items())
+        out["restore_bit_equal"] = same
+        check(same and back["opt_state"]["count"]
+              == saved["opt_state"]["count"],
+              "PPO's restore does not give back the saved state")
+    finally:
+        algo.stop()
+    return out
+
+
+def _impala_phase(dev) -> dict:
+    import math
+    import torch
+    from ray_tpu_torch.rl import ImpalaConfig, vtrace
+    from ray_tpu_torch.rl import models as M
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    split = ("num_rollout_workers", "num_envs_per_worker",
+             "rollout_fragment_length")
+    algo = (ImpalaConfig().environment("CartPole-v1")
+            .rollouts(**{k: RL_IMPALA[k] for k in split})
+            .training(**{k: v for k, v in RL_IMPALA.items()
+                         if k not in split})
+            .debugging(seed=SEED).build())
+    try:
+        check(all(p.device.type == dev.type
+                  for p in algo.model.parameters()),
+              f"the IMPALA learner is not on {dev}")
+        frag = {}
+        real = algo._sgd_step
+
+        def step(opt_state, batch):
+            if not frag:
+                frag.update({k: v.clone() for k, v in batch.items()})
+            return real(opt_state, batch)
+        algo._sgd_step = step
+        losses, rewards, t0 = [], [], time.perf_counter()
+        for _ in range(RL_IMPALA_ITERS):
+            r = algo.train()
+            losses.append(r["info"]["total_loss"])
+            rewards.append(r["episode_reward_mean"])
+        wall = time.perf_counter() - t0
+        out = {"train_iters": RL_IMPALA_ITERS, "wall_s": wall,
+               "timesteps_total": r["timesteps_total"],
+               "env_steps_per_s": r["timesteps_total"] / wall,
+               "total_losses": losses, "episode_reward_mean": rewards}
+        check(all(math.isfinite(x) for x in losses),
+              f"an IMPALA loss is not finite: {losses}")
+        out["launches"] = {n: c.launches for n, c in counters.items()}
+        check(not any(out["launches"].values()),
+              f"a kernel launched on the IMPALA path: {out['launches']}")
+        # V-trace on the card against the CPU on the first fragment, with
+        # the learner's current network
+        with torch.no_grad():
+            T, B = frag["rewards"].shape
+            logits, values = algo.model(frag["obs"].reshape(T * B, -1))
+            _, boot = algo.model(frag["bootstrap_obs"])
+            target = M.categorical_logp(logits.reshape(T, B, -1),
+                                        frag["actions"])
+            disc = RL_IMPALA["gamma"] * (1.0 - frag["terminateds"].float())
+            args = (target, frag["action_logp"], frag["rewards"],
+                    values.reshape(T, B), boot, disc)
+            card = vtrace(*args)
+            host = vtrace(*(a.cpu() for a in args))
+        errs = [compare(c.cpu(), h, atol=VTRACE_TOL, rtol=VTRACE_TOL)
+                for c, h in zip(card, host)]
+        out["vtrace"] = {"shape": [T, B], "vs": errs[0], "pg_adv": errs[1]}
+        check(all(e["finite"] and e["within_tol"] for e in errs),
+              f"V-trace on the card disagrees with the CPU: {errs}")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _dt_phase(dev, work: str) -> dict:
+    import math
+    import torch
+    from ray_tpu_torch.rl import DTConfig, JsonReader, collect_dataset
+    from ray_tpu_torch.rl.algorithm import to_device
+    from ray_tpu_torch.rl.dt import _DTModel, dt_loss
+    t0 = time.perf_counter()
+    path = str(Path(work) / "dt_data")
+    collect_dataset("CartPole-v1", path, n_steps=DT_DATA_STEPS, seed=SEED)
+    data = JsonReader(path).read_all()
+    out = {"dataset_rows": data.count, "collect_s": time.perf_counter() - t0,
+           "episodes": len(data.split_by_episode())}
+    check(data.count >= DT_DATA_STEPS, f"the dataset holds {data.count} rows")
+    cfg = (DTConfig().environment("CartPole-v1").offline_data(
+        input_path=path).debugging(seed=SEED))
+    dt = cfg.build()
+    mcfg, n_layers = dt.model.cfg, cfg.n_layers
+    check(all(p.device.type == dev.type
+              for p in dt.model.parameters()),
+          f"the DT learner is not on {dev}")
+    check((cfg.train_batch_size, cfg.context_len, mcfg.n_heads,
+           mcfg.head_dim) == (DT_BATCH, DT_CONTEXT, DT_HEADS, DT_HEAD_DIM),
+          f"DT's widths moved: {mcfg}")
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    # the first step's loss through the kernels against the plain
+    # attention from the same weights
+    batch = to_device(dt._sample_batch(cfg.train_batch_size), dev)
+    plain = _DTModel(dt.obs_dim, dt.act_dim, cfg.d_model, n_layers,
+                     cfg.n_heads, cfg.context_len, attention_impl="xla",
+                     device=dev)
+    plain.load_state_dict(dt.model.state_dict())
+    with torch.no_grad():
+        plain_loss = float(dt_loss(plain, *batch)[0])
+    check(not any(c.launches for c in counters.values()),
+          "the plain DT forward launched a kernel")
+    del plain
+    kernel_loss = float(dt.sgd_step(*batch)[0])
+    first = {n: c.launches for n, c in counters.items()}
+    out["first_step"] = {"kernel_loss": kernel_loss, "plain_loss": plain_loss,
+                         "rel_err": abs(kernel_loss - plain_loss)
+                         / abs(plain_loss), "launches": first}
+    check(out["first_step"]["rel_err"] <= DT_LOSS_RTOL,
+          f"DT's first loss through the kernels is {kernel_loss}, the plain "
+          f"attention's {plain_loss}")
+    want = {n: n_layers if n.startswith("flash_") else 0 for n in first}
+    check(first == want, f"one DT step launched {first}, not {want}")
+    # two train() calls: K2 and K3 n_layers per SGD step, K1 n_layers per
+    # SGD step and per evaluate() forward, K4 and K5 never
+    for c in counters.values():
+        c.launches = 0
+    losses, forwards, eval_k1, evals = [], [0], [], []
+    real_step, real_eval = dt.sgd_step, dt.evaluate
+
+    def sgd_step(*a):
+        loss, acc = real_step(*a)
+        losses.append(loss)
+        return loss, acc
+
+    def evaluate(*a, **kw):
+        k1 = counters["flash_fwd"].launches
+        t1 = time.perf_counter()
+        res = real_eval(*a, **kw)
+        evals.append(time.perf_counter() - t1)
+        eval_k1.append(counters["flash_fwd"].launches - k1)
+        return res
+    hook = dt.model.register_forward_hook(
+        lambda *a: forwards.__setitem__(0, forwards[0] + 1))
+    dt.sgd_step, dt.evaluate = sgd_step, evaluate
+    results, t1 = [], time.perf_counter()
+    try:
+        for _ in range(DT_TRAIN_CALLS):
+            results.append(dt.train())
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    steps = DT_TRAIN_CALLS * cfg.num_sgd_iter
+    launches = {n: c.launches for n, c in counters.items()}
+    eval_forwards = forwards[0] - steps
+    losses = [float(x) for x in losses]
+    head, tail = losses[:10], losses[-10:]
+    out.update(
+        train_calls=DT_TRAIN_CALLS, sgd_steps=steps, wall_s=wall,
+        sgd_ms=(wall - sum(evals)) / steps * 1e3,
+        eval_s=evals, eval_forwards=eval_forwards, launches=launches,
+        loss_first10=sum(head) / len(head), loss_last10=sum(tail) / len(tail),
+        losses=losses,
+        results=[{"loss": r["info"]["loss"],
+                  "action_accuracy": r["info"]["action_accuracy"],
+                  "target_return": r["info"]["target_return"],
+                  "episode_reward_mean": r["episode_reward_mean"]}
+                 for r in results])
+    want = {n: 0 for n in launches}
+    want.update(flash_fwd=n_layers * (steps + eval_forwards),
+                flash_bwd_dq=n_layers * steps,
+                flash_bwd_dkv=n_layers * steps)
+    check(launches == want, f"DT's train() calls launched {launches}, "
+                            f"not {want}")
+    check(all(k > 0 for k in eval_k1) and eval_forwards > 0,
+          f"evaluate() launched K1 {eval_k1} times")
+    check(all(math.isfinite(r["episode_reward_mean"]) for r in results),
+          "DT's evaluate() reward is not finite")
+    check(all(math.isfinite(x) for x in losses) and
+          out["loss_last10"] < out["loss_first10"],
+          f"DT's loss did not fall: {out['loss_first10']} -> "
+          f"{out['loss_last10']}")
+    return out
+
+
+def rl_phase(dev) -> dict:
+    """RL on the port's runtime, in a session of its own, as the module
+    docstring says: (a) PPO to the CartPole-v1 target, (b) IMPALA, (c)
+    the Decision Transformer through K1-K3 at head_dim 32."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_rl_")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8)
+    node = ray_tpu_torch.api._node
+    out = {"init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir}
+    try:
+        out["ppo"] = _ppo_phase(dev)
+        out["impala"] = _impala_phase(dev)
+        out["dt"] = _dt_phase(dev, work)
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.perf_counter() - t0
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
+def rl_launches(rl: dict, kind: str) -> dict:
+    """A kernel's launches on the rl phase's three paths."""
+    return {f"rl_{part}": rl[part]["launches"][kind]
+            for part in ("ppo", "impala", "dt")}
+
+
 def attn_bound(kind: str, q, k, causal: bool) -> dict:
     """Least time for one flash or splash kernel call (``kind`` ends in
     fwd, bwd_dq or bwd_dkv): each input read once and each output
@@ -3188,10 +3688,8 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
     bound, its plain version's and SDPA's (forward, or backward for the
     two backward kernels), and its registers, local memory, blocks per SM
     and shared memory per block."""
-    import ctypes
     import torch
     import torch.nn.functional as F
-    from ray_tpu_torch.ops import flash_attention, splash
     scale = d ** -0.5
     fwd, dq_k, dkv_k, ref_fwd, ref_dq, ref_dkv = kernel_fns(
         family, True, scale, h, sq, sq)
@@ -3220,7 +3718,6 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
                   f"plain version: {c}")
         res[kind]["max_abs_err"] = max(c["max_abs_err"]
                                        for c in res[kind].values())
-    lib = (flash_attention if family == "flash" else splash)._lib()
     # the library yardstick: SDPA on contiguous [B, H, S, D] fp32 copies,
     # its backward computing dq, dk and dv together
     lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -3233,24 +3730,38 @@ def fp32_wide_case(dev, gen, family: str, b: int = 2, sq: int = 256,
     ldo = do.transpose(1, 2)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         lout, (lq, lk, lv), ldo, retain_graph=True), [()])[0]
-    for i, (kind, fn, args, ref, ref_args, lib_ms) in enumerate((
+    usage = fp32_usage(family, d)
+    for kind, fn, args, ref, ref_args, lib_ms in (
             (kinds[0], fwd, (q, k, v), ref_fwd, (q, k, v), lib_fwd),
             (kinds[1], dq_k, (q, k, v, do, lse, delta), ref_dq,
              (q, k, v, o, lse, do), lib_bwd),
             (kinds[2], dkv_k, (q, k, v, do, lse, delta), ref_dkv,
-             (q, k, v, o, lse, do), lib_bwd))):
+             (q, k, v, o, lse, do), lib_bwd)):
         ms = time_ms(fn, [args])[0]
         res[kind].update(plain_ms=time_ms(ref, [ref_args], reps=2)[0],
                          library_ms=lib_ms)
         bound = attn_bound(kind, q, k, True)
+        res[kind].update(ms=ms, tflop_s=bound["flops"] / ms / 1e9, **bound,
+                         **usage[kind])
+    return res
+
+
+def fp32_usage(family: str, d: int) -> dict:
+    """Registers, local memory, blocks per SM and shared memory of the
+    fp32 kernels of ``family`` at head_dim ``d``, by kernel."""
+    import ctypes
+    from ray_tpu_torch.ops import flash_attention, splash
+    lib = (flash_attention if family == "flash" else splash)._lib()
+    out = {}
+    for i, n in enumerate(("fwd", "bwd_dq", "bwd_dkv")):
         u = (ctypes.c_int * 3)()
         err = getattr(lib, f"rt_{family}_fp32_usage")(i, d, u)
-        check(err == 0, f"fp32 {kind} usage query: cudaError {err}")
-        res[kind].update(
-            ms=ms, tflop_s=bound["flops"] / ms / 1e9, **bound,
+        check(err == 0, f"fp32 {family}_{n} usage query at head_dim {d}: "
+                        f"cudaError {err}")
+        out[f"{family}_{n}"] = {
             **dict(zip(("registers", "local_bytes", "blocks_per_sm"), u)),
-            smem_bytes=getattr(lib, f"rt_{family}_smem_bytes")(i, 0, d))
-    return res
+            "smem_bytes": getattr(lib, f"rt_{family}_smem_bytes")(i, 0, d)}
+    return out
 
 
 def flash_phase(dev) -> dict:
@@ -3293,6 +3804,17 @@ def flash_phase(dev) -> dict:
                     None, False),
                    ("air_tune", (TUNE_BATCH, 1024, 12, 12, 64), True, None,
                     False))}
+    # the Decision Transformer's attention (phase rl), timed: fp32 at
+    # head_dim 32 through the CUDA-core kernels, 60 tokens in one ragged
+    # tile, with each kernel's registers, local memory, blocks per SM and
+    # shared memory there; and the same shape in bf16 through the
+    # tensor-core kernels, whose tiles are 4 chunks of 16 bytes a row there
+    dt_shape = (DT_BATCH, 3 * DT_CONTEXT, DT_HEADS, DT_HEADS, DT_HEAD_DIM)
+    at_path["dt"] = attention_case(dev, gen, "flash", *dt_shape, fp32, True,
+                                   timed=True)
+    at_path["dt"]["usage"] = fp32_usage("flash", DT_HEAD_DIM)
+    at_path["dt_bf16"] = attention_case(dev, gen, "flash", *dt_shape, bf16,
+                                        True, timed=True)
     torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "flash", *c) for c in (
         (2, 2000, 32, 8, 128, bf16, True),
@@ -3306,7 +3828,9 @@ def flash_phase(dev) -> dict:
         (2, 256, 8, 2, 128, bf16, False, None, False, False, True),
         (2, 200, 8, 2, 256, bf16, True),
         (1, 256, 4, 4, 256, bf16, False, 320),
-        (2, 256, 4, 2, 256, bf16, True, None, False, False, True))]
+        (2, 256, 4, 2, 256, bf16, True, None, False, False, True),
+        (2, 200, 4, 2, 32, bf16, False, 137),
+        (2, 256, 4, 4, 32, bf16, True, None, False, False, True))]
     return {"slice_shape": at_slice, "hd256_shape": at_hd256,
             **{f"{label}_shape": res for label, res in at_path.items()},
             "coverage": coverage,
@@ -3701,7 +4225,7 @@ ENCODER_BATCH, ENCODER_SEQ, DECODER_SEQ = 16, 512, 128
 # flash_phase's shapes of the training paths, as the kernel rows name
 # them (the first three timed)
 PATH_SHAPES = ("vit", "large", "mixtral", "bert", "t5_cross", "t5_self",
-               "air_predict", "air_tune")
+               "air_predict", "air_tune", "dt", "dt_bf16")
 GREEDY_PROMPTS, GREEDY_TOKENS = 4, 32
 # the greedy decode's query and key projections are scaled by this over
 # init_weights' draw (attention logits by its square), see
@@ -4184,6 +4708,10 @@ def main() -> int:
     emit({"phase": "air_batch", **air_batch})
     torch.cuda.empty_cache()
 
+    rl = rl_phase(dev)
+    emit({"phase": "rl", **rl})
+    torch.cuda.empty_cache()
+
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
     torch.cuda.empty_cache()
@@ -4245,7 +4773,8 @@ def main() -> int:
             **{path: run["launches"]["paged_attention"]
                for path, run in family_runs.items()},
             **air_launches(air, "paged_attention"),
-            **air_batch_launches(air_batch, "paged_attention")},
+            **air_batch_launches(air_batch, "paged_attention"),
+            **rl_launches(rl, "paged_attention")},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -4280,7 +4809,8 @@ def main() -> int:
                 **{path: fam["launches"][kind]
                    for path, fam in family_runs.items()},
                 **air_launches(air, kind),
-                **air_batch_launches(air_batch, kind)}
+                **air_batch_launches(air_batch, kind),
+                **rl_launches(rl, kind)}
             for label in PATH_SHAPES:
                 at = phase.get(f"{label}_shape")
                 if at is not None:
@@ -4313,7 +4843,7 @@ def main() -> int:
          "dense_slice": dense, "prefix_handoff": prefix,
          "runtime": runtime, "serve": served, "flash": flash,
          "splash": splash, "train": train, "air": air,
-         "air_batch": air_batch,
+         "air_batch": air_batch, "rl": rl,
          "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,

@@ -74,10 +74,17 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // Element offset of (row, col) in a [rows, D] bf16 tile whose 16-byte
-// chunks are XOR-permuted by row % 8 (col a multiple of 2).
+// chunks are XOR-permuted (col a multiple of 2): by row % 8 where a row
+// holds 8 chunks or more (head_dim 64 up); at head_dim 32, whose 64-byte
+// rows lie two to a 128-byte line, by (row / 2) % 4.  Either way the eight
+// rows an ldmatrix phase reads at one chunk hit eight bank groups, and
+// the permutation repeats every 8 rows.
 template <int D>
 __device__ __forceinline__ int swz(int row, int col) {
-  return row * D + ((((col >> 3) ^ (row & 7))) << 3) + (col & 7);
+  constexpr int kChunks = D / 8;
+  static_assert(kChunks >= 8 || kChunks == 4, "head_dim 32 or 64 up");
+  const int x = kChunks >= 8 ? (row & 7) : ((row >> 1) & 3);
+  return row * D + ((((col >> 3) ^ x)) << 3) + (col & 7);
 }
 
 // The byte offset of a lane's ldmatrix row at 16-column step i of a

@@ -44,14 +44,20 @@
 // diagonal tile, the ragged last kv tile and the ragged last q tile.  It
 // needs every row of q, k, v and dout on 16 bytes.
 //
-// The bf16 kernels take head_dim 64, 128 and 256.  At 256 K1 and K2
+// The bf16 kernels take head_dim 32, 64, 128 and 256.  At 32 a tile row is
+// 4 chunks of 16 bytes, so the swizzle XORs the chunk with (row / 2) % 4
+// in place of row % 8 (attention_tc_common.cuh swz), and the products take
+// two k-steps of 16.  At 256 K1 and K2
 // re-read Q (and dO) from shared memory at each k-step rather than hold
 // their fragments, and K3 runs two blocks per kv tile, each accumulating
 // half of the columns of dK and dV.
 //
 // K1, K2 and K3 on fp32 inputs are the first, simple versions: products
 // as fp32 FMAs on the CUDA cores (67 TFLOP/s, not the 989 of bf16 tensor
-// cores), at head_dim 64, 128 and 256.  At 256 K1 keeps its 64-row tiles
+// cores), at head_dim 32, 64, 128 and 256.  Nothing in them assumes 64
+// columns: a score tile is always 64 x 64 (queries x keys), whatever the
+// head_dim, and a thread's share of an accumulator row is head_dim / 16
+// columns (2 at head_dim 32, the Decision Transformer's heads).  At 256 K1 keeps its 64-row tiles
 // (214 KB of shared memory), while a K2 block owns a 32-row q tile and a
 // K3 block a 32-row kv tile (206 and 214 KB; 64 rows would need 280 and
 // 296 KB, over the card's 227 KB per block).  What bounds them on
@@ -654,6 +660,7 @@ int tc_usage(int kind, int* out) {
 }
 
 int tc_usage(int kind, int hd, int* out) {
+  if (hd == 32) return tc_usage<32>(kind, out);
   if (hd == 64) return tc_usage<64>(kind, out);
   if (hd == 128) return tc_usage<128>(kind, out);
   if (hd == 256) return tc_usage<256>(kind, out);
@@ -662,6 +669,7 @@ int tc_usage(int kind, int hd, int* out) {
 
 int fp32_usage(int kind, int hd, int* out) {
   if (kind < kFwd || kind > kDkv) return cudaErrorInvalidValue;
+  if (hd == 32) return fp32_usage<32>(kind, out);
   if (hd == 64) return fp32_usage<64>(kind, out);
   if (hd == 128) return fp32_usage<128>(kind, out);
   if (hd == 256) return fp32_usage<256>(kind, out);
@@ -679,7 +687,7 @@ size_t rt_flash_smem_bytes(int kind, int dtype, int hd) {
 }
 
 // Registers per thread, local memory bytes per thread and resident blocks
-// per SM of K1's bf16 kernel at head_dim hd (64, 128 or 256), as the CUDA
+// per SM of K1's bf16 kernel at head_dim hd (32, 64, 128 or 256), as the CUDA
 // runtime reports them, into out[3]; the cudaError_t of the query.
 int rt_flash_fwd_usage(int hd, int* out) { return tc_usage(kFwd, hd, out); }
 
@@ -689,7 +697,8 @@ int rt_flash_dq_usage(int hd, int* out) { return tc_usage(kDq, hd, out); }
 // The same of K3's bf16 kernel.
 int rt_flash_dkv_usage(int hd, int* out) { return tc_usage(kDkv, hd, out); }
 
-// The same of the fp32 kernel of `kind` (0 K1, 1 K2, 2 K3).
+// The same of the fp32 kernel of `kind` (0 K1, 1 K2, 2 K3) at head_dim hd
+// (32, 64, 128 or 256).
 int rt_flash_fp32_usage(int kind, int hd, int* out) {
   return fp32_usage(kind, hd, out);
 }
@@ -699,7 +708,7 @@ int rt_flash_fp32_usage(int kind, int hd, int* out) {
 // (batch, seq, head) strides in elements of q, k and v, in that order; their
 // head_dim stride is 1.  dout, out, dk and dv are contiguous; lse and delta
 // are fp32 [B, H, Sq].  Pointers a kind does not use may be null.  head_dim
-// is 64, 128 or 256.  K1 on bf16 needs the q, k and
+// is 32, 64, 128 or 256.  K1 on bf16 needs the q, k and
 // v pointers and strides on 16 bytes, K2 and K3 on bf16 those of q, k, v
 // and dout (cudaErrorMisalignedAddress otherwise).  Returns the
 // cudaError_t of the launch.
@@ -739,9 +748,11 @@ int rt_flash_attention(int kind, int dtype, const void* q, const void* k,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 32) return run<float, 32>(kind, p, st);
   if (dtype == 0 && hd == 64) return run<float, 64>(kind, p, st);
   if (dtype == 0 && hd == 128) return run<float, 128>(kind, p, st);
   if (dtype == 0 && hd == 256) return run<float, 256>(kind, p, st);
+  if (dtype == 1 && hd == 32) return run<__nv_bfloat16, 32>(kind, p, st);
   if (dtype == 1 && hd == 64) return run<__nv_bfloat16, 64>(kind, p, st);
   if (dtype == 1 && hd == 128) return run<__nv_bfloat16, 128>(kind, p, st);
   if (dtype == 1 && hd == 256) return run<__nv_bfloat16, 256>(kind, p, st);

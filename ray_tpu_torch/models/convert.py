@@ -45,6 +45,13 @@ The other families (``model_leaves``) reuse that block layout:
     conv_proj, norm_proj}/...`` (the port's ``blocks.{k}.conv{i}`` and
     ``norm{i}``) and ``Dense_0/{kernel, bias}`` (the port's ``head``).
 
+Any other model holds dense layers named as its flax counterpart's
+(``dense_leaves``: the RL networks of ``rl/models.py``, with
+``pi_0/kernel``, ``pi_log_std``, ``q1/q_0/kernel``,
+``OptimizedLSTMCell_0/hi/kernel``), or says what it holds with a
+``jax_leaves()`` method of its own (the Decision Transformer of
+``rl/dt.py``, whose ``Block`` stack is the GPT's ``blocks``).
+
 A flax kernel is [in, out...]; ``nn.Linear`` stores [out, in], so a
 ``.weight`` is the transpose of its kernel with the trailing dims
 flattened.  A flax convolution kernel is HWIO and the port's ``.weight``
@@ -276,10 +283,44 @@ def _resnet_leaves(model) -> List[JaxLeaf]:
     return leaves
 
 
+def dense_leaves(model, skip: str = "") -> List[JaxLeaf]:
+    """Leaves of a module tree named as its flax counterpart's: ``a.b.
+    weight`` [out, in] is ``a/b/kernel`` [in, out], ``a.b.bias`` is
+    ``a/b/bias``, any other parameter (``pi_log_std``, a norm's
+    ``scale``) sits at its dotted path.  Parameters under ``skip`` are
+    left out.  Raises ``TypeError`` for a ``.weight`` of anything but an
+    ``nn.Linear`` (an embedding or a convolution has a layout of its
+    own)."""
+    owners = dict(model.named_modules())
+    leaves = []
+    for name, p in model.named_parameters():
+        if skip and name.startswith(skip):
+            continue
+        parts = name.split(".")
+        if parts[-1] == "weight":
+            if not isinstance(owners[".".join(parts[:-1])],
+                              torch.nn.Linear):
+                raise TypeError(f"no JAX counterpart known for "
+                                f"{type(model).__name__}: {name}")
+            leaves.append(_leaf(parts[:-1] + ["kernel"], p.shape[::-1],
+                                name))
+        else:
+            leaves.append(_leaf(parts, p.shape, name))
+    return leaves
+
+
+def block_leaves(cfg: TransformerConfig) -> List[JaxLeaf]:
+    """The leaves of a dense GPT ``Block`` stack under ``blocks`` (the
+    port's ``blocks.{i}``), scanned or not as ``cfg.scan_layers`` says."""
+    return _stack(cfg, _block_layer(cfg, _mlp(cfg)))
+
+
 def model_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
     """The JAX counterpart's parameter leaves of a port model: ``GPT``
     (as ``jax_leaves(model.cfg)``), ``ViT``, ``BERT``, ``T5``,
-    ``ResNet`` or a bare ``Encoder``."""
+    ``ResNet``, a bare ``Encoder``, a model with a ``jax_leaves()``
+    method of its own, or else a tree of dense layers
+    (``dense_leaves``)."""
     from ray_tpu_torch.models.bert import BERT
     from ray_tpu_torch.models.encoder import Encoder
     from ray_tpu_torch.models.gpt import GPT
@@ -294,7 +335,9 @@ def model_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
                     (Encoder, lambda m: encoder_leaves(m.cfg, ()))):
         if isinstance(model, cls):
             return fn(model)
-    raise TypeError(f"no JAX counterpart known for {type(model).__name__}")
+    if hasattr(model, "jax_leaves"):
+        return model.jax_leaves()
+    return dense_leaves(model)
 
 
 def _read(tree: Mapping, leaves: List[JaxLeaf]) -> Dict[str, torch.Tensor]:

@@ -23,7 +23,8 @@ Pallas kernels of the JAX package:
     ``csrc/attention_bwd_dkv_tc.cuh``, with the same row rule; fp32
     inputs take the CUDA-core kernel.
 
-The kernels take head_dim 64, 128 and 256, in fp32 and in bf16.
+The kernels take head_dim 32 (the Decision Transformer's ``rl/dt.py``
+heads), 64, 128 and 256, in fp32 and in bf16.
 
 ``flash_attention`` wraps them in a ``torch.autograd.Function``: the
 forward launches K1 and saves (q, k, v, o, lse); the backward computes
@@ -49,7 +50,7 @@ import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF, repeat_kv
 
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _FWD, _DQ, _DKV = 0, 1, 2

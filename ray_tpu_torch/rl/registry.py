@@ -1,0 +1,82 @@
+"""Algorithm registry: name -> (Algorithm, AlgorithmConfig) (counterpart
+of ray_tpu/rl/registry.py).
+
+Analog of RLlib's rllib/algorithms/registry.py (get_algorithm_class) —
+the string lookup used by the CLI, Tune experiment specs, and tests.
+The port resolves the algorithms it has: PPO, IMPALA, BC, MARWIL and
+DT.  Every other name of the JAX package's registry raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+
+def get_algorithm_class(name: str, return_config: bool = False):
+    """Look up an algorithm by its registry name (case-insensitive)."""
+    key = name.lower().replace("-", "").replace("_", "")
+    if key in _LATER:
+        raise NotImplementedError(
+            f"algorithm {name!r} is not ported yet: it comes with "
+            f"{_LATER[key]} (ROADMAP.md, Queue 1, item 4, RL)")
+    try:
+        algo_cls, cfg_cls = _REGISTRY[key]()
+    except KeyError:
+        raise ValueError(
+            f"unknown algorithm {name!r}; known: {sorted(POLICIES)}")
+    if return_config:
+        return algo_cls, cfg_cls
+    return algo_cls
+
+
+def _ppo():
+    from ray_tpu_torch.rl.ppo import PPO, PPOConfig
+    return PPO, PPOConfig
+
+
+def _impala():
+    from ray_tpu_torch.rl.impala import Impala, ImpalaConfig
+    return Impala, ImpalaConfig
+
+
+def _bc():
+    from ray_tpu_torch.rl.offline import BC, BCConfig
+    return BC, BCConfig
+
+
+def _marwil():
+    from ray_tpu_torch.rl.offline import MARWIL, MARWILConfig
+    return MARWIL, MARWILConfig
+
+
+def _dt():
+    from ray_tpu_torch.rl.dt import DT, DTConfig
+    return DT, DTConfig
+
+
+_REGISTRY = {
+    "ppo": _ppo,
+    "impala": _impala,
+    "bc": _bc,
+    "marwil": _marwil,
+    "dt": _dt,
+}
+
+# the rest of the JAX package's registry, by the slice that ports it
+_SLICES = (
+    ("APPO and rl/podracer/", ("appo",)),
+    ("DQN, SimpleQ, Ape-X and R2D2",
+     ("dqn", "simpleq", "apexdqn", "r2d2")),
+    ("SAC and DDPG/TD3", ("sac", "ddpg", "td3")),
+    ("PG, A2C and A3C", ("pg", "a2c", "a3c")),
+    ("CQL and CRR", ("cql", "crr")),
+    ("multi_agent, MADDPG and QMIX", ("maddpg", "qmix")),
+    ("the model-based and search families",
+     ("dreamer", "mbmpo", "maml", "alphazero", "alphastar", "slateq",
+      "es", "ars", "banditlinucb", "banditlints")),
+)
+_LATER: Dict[str, str] = {key: slice_ for slice_, keys in _SLICES
+                          for key in keys}
+
+POLICIES: Tuple[str, ...] = tuple(sorted(list(_REGISTRY) + list(_LATER)))

@@ -105,18 +105,28 @@ def _clip_scale(gs, max_norm: float) -> torch.Tensor:
                        max_norm / norm)
 
 
+def decay_all(params: Params) -> Dict[str, bool]:
+    """Weight-decay every parameter: optax's ``adamw`` with no mask
+    (biases and norm scales too), as ``ray_tpu/rl/dt.py`` builds it."""
+    return {n: True for n in params}
+
+
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1,
     b2, eps, weight_decay, mu_dtype, mask))`` over named parameters,
-    applied in place."""
+    applied in place.  ``mask`` maps the parameters to which of them
+    decay: the LM rule ``_decay_mask`` by default, ``decay_all`` for an
+    unmasked ``optax.adamw``."""
 
     def __init__(self, schedule: Callable[[int], float], *, b1: float,
                  b2: float, weight_decay: float, grad_clip: float,
-                 eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32):
+                 eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32,
+                 mask: Callable[[Params], Dict[str, bool]] = _decay_mask):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
         self.mu_dtype = mu_dtype
+        self.mask = mask
 
     def init(self, params: Params) -> Dict[str, Any]:
         return {"count": 0,
@@ -148,7 +158,7 @@ class AdamW:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(upd, denom)
         if self.weight_decay:
-            mask = _decay_mask(params)
+            mask = self.mask(params)
             dec = [i for i, n in enumerate(names) if mask[n]]
             torch._foreach_add_([upd[i] for i in dec],
                                 [params[names[i]].float() for i in dec],

@@ -135,6 +135,48 @@ def test_schedule_matches_optax(warmup, decay):
     assert sched(0) == 0.0 or warmup == 0
 
 
+@pytest.mark.parametrize("mask", ["decay_all", "lm_rule"])
+def test_adamw_mask_matches_optax_adamw(mask):
+    """AdamW(mask=decay_all) is optax.chain(clip_by_global_norm,
+    adamw(lr, weight_decay)) with no mask (every leaf decays, biases and
+    norm scales too: the Decision Transformer's optimizer), and the
+    default mask keeps the LM rule (only `.weight` and `embed` decay).
+    Three updates of a bias, a norm scale and a kernel, from gradients
+    large enough that the clip acts on the first; fp32, rtol 1e-6."""
+    from ray_tpu_torch.train.step import AdamW, decay_all
+    rng = np.random.default_rng(3)
+    shapes = {"blk.weight": (5, 3), "blk.bias": (5,), "norm.scale": (3,),
+              "embed": (7, 3)}
+    params = {n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()}
+    grads = [{n: (4 * rng.standard_normal(s)).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(3)]
+    decayed = ({n: True for n in params} if mask == "decay_all" else
+               {n: n == "embed" or n.endswith(".weight") for n in params})
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(
+        1e-2, weight_decay=0.5,
+        mask=None if mask == "decay_all" else decayed))
+    want = {n: jnp.asarray(v) for n, v in params.items()}
+    state = tx.init(want)
+    for g in grads:
+        upd, state = tx.update({n: jnp.asarray(v) for n, v in g.items()},
+                               state, want)
+        want = optax.apply_updates(want, upd)
+    kw = {} if mask == "lm_rule" else {"mask": decay_all}
+    port = AdamW(lambda count: 1e-2, b1=0.9, b2=0.999, weight_decay=0.5,
+                 grad_clip=1.0, **kw)
+    got = {n: _t(v) for n, v in params.items()}
+    pstate = port.init(got)
+    for g in grads:
+        pstate = port.update(got, {n: _t(v) for n, v in g.items()}, pstate)
+    for n in params:
+        np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]),
+                                   rtol=1e-6, atol=1e-7)
+    # the two masks give different parameters: the bias and scale decay
+    # only under decay_all
+    assert port.mask(got) == decayed
+
+
 def _batch(cfg, seed=0, b=4, s=32):
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
