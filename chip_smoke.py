@@ -96,9 +96,11 @@ package.  Phases, one JSON line each:
               way at the same training shapes, at GQA 32/8 head_dim 128
               (2 x 2048), with a full mask (q 512, kv 1024), in fp32,
               from a fused tensor, at S = 128 (the library's shortest
-              length), at 1 x 4096, with rows of very low logits and at
-              head_dim 256; the tiles the mask table visits against the
-              dense count.
+              length), at 1 x 4096, with rows of very low logits, at
+              head_dim 256 and at head_dim 32 (DT's batch and heads at
+              S = 128, fp32 and bf16, timed; DT's 60 tokens raise the
+              library's block-rule ValueError); the tiles the mask table
+              visits against the dense count.
   6. train    gpt-small at full width and depth with bench.py's
               settings (batch 16 x 1024, remat "dots", AdamW warmup 10 /
               decay 1000, attention_impl "flash"), random weights from
@@ -179,6 +181,27 @@ package.  Phases, one JSON line each:
               SGD step (K1 also n_layers per evaluate() forward), K4
               and K5 never, the loss falling over two train() calls,
               evaluate() finite; no process is left after shutdown().
+     rl_replay  the replay and asynchronous families on the runtime, in
+              a session of their own, each at its config's widths: (a)
+              DQN (256 x 256, dueling, double-Q, Adam 5e-4; 2 actors x 2
+              envs, fragment 64) reaches episode_reward_mean 150 within
+              100,000 env steps, its first TD step equals the same step
+              on CPU copies, its target holds still between syncs; (b)
+              Ape-X (4 actors, PER) for 10 calls: the epsilon ladder,
+              priorities that move, finite losses, the cost of the
+              per-step priority fetch; (c) R2D2 (LSTM 64, sequences of
+              40, burn-in 8) with its first TD step against the CPU and
+              steps trained; (d) APPO with its first step against the
+              CPU and mean_ratio > 0; (e) IMPALA and PPO through
+              .podracer() at benchmarks/rl_podracer.py's fleet, the
+              learner actor on a leased card: zero driver task
+              submissions in steady state, every actor adopting a
+              published version, a killed actor replaced, a bit-equal
+              save / restore; (f) Tuner(PPO.as_trainable(cfg)) over two
+              learning rates on half-card trials, each reporting 3
+              iterations and a checkpoint.  Rollout actors start no
+              CUDA, no attention kernel launches, and no process is
+              left after shutdown().
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
@@ -2896,7 +2919,7 @@ RL_IMPALA_ITERS = 10
 # wrong loss or update moves the loss or the weights by far more.  The
 # loss relative to the CPU's, each gradient tensor's error relative to
 # its largest element, the parameters after the step as one vector
-# (_ppo_step_check says why not per element), for the learner's real
+# (_step_check says why not per element), for the learner's real
 # step and for a replay of it on the card that also yields the
 # gradients.  V-trace on the card against the CPU: fp32 over a 50-step
 # recursion, atol and rtol 1e-5
@@ -2926,38 +2949,47 @@ def _timed(obj, name: str, bucket: list) -> None:
     setattr(obj, name, wrapper)
 
 
-def _record_first(algo, rec: dict) -> None:
-    """Make ``algo._sgd_step`` keep host copies of its first call's
-    weights, optimizer state and batch, and of the weights and aux it
-    produced (the real step runs unchanged)."""
+def _record_first(algo, rec: dict, name: str = "_sgd_step") -> None:
+    """Make ``algo.<name>`` (a step ``(opt_state, batch) -> (opt_state,
+    aux)``) keep host copies of its first call's weights (and its target
+    network's, where the learner has one), optimizer state and batch,
+    and of the weights and the 0-d aux it produced (the real step runs
+    unchanged)."""
     from ray_tpu_torch.rl.algorithm import to_host
-    real = algo._sgd_step
+    from ray_tpu_torch.rl.policy import module_weights
+    real = getattr(algo, name)
 
     def step(opt_state, batch):
         if rec:
             return real(opt_state, batch)
         rec.update(weights=algo.get_weights(), opt=to_host(opt_state),
                    batch={k: v.cpu() for k, v in batch.items()})
+        if getattr(algo, "target_model", None) is not None:
+            rec["target"] = module_weights(algo.target_model)
         opt_state, aux = real(opt_state, batch)
         rec.update(after=algo.get_weights(),
-                   aux={k: float(v) for k, v in aux.items()})
+                   aux={k: float(v) for k, v in aux.items() if v.dim() == 0})
         return opt_state, aux
-    algo._sgd_step = step
+    setattr(algo, name, step)
 
 
-def _ppo_replay(algo, rec: dict, device) -> dict:
-    """The recorded first minibatch step again on copies of the network,
-    the optimizer state and the minibatch on ``device``: its aux, its
-    gradients and the weights it gives, as host numpy."""
+def _step_replay(algo, rec: dict, device, make_step) -> dict:
+    """The recorded first step again on copies of the network (and the
+    target network), the optimizer state and the batch on ``device``,
+    through ``make_step(model, target, tx)`` with the learner's optimizer
+    (``make_ppo_optimizer``: clip, then Adam): its 0-d aux, its gradients
+    and the weights it gives, as host numpy."""
     import copy
 
-    import torch
-    from ray_tpu_torch.rl import models as M
     from ray_tpu_torch.rl.algorithm import to_device
     from ray_tpu_torch.rl.policy import load_weights, module_weights
-    from ray_tpu_torch.rl.ppo import make_ppo_optimizer, make_ppo_sgd_step
+    from ray_tpu_torch.rl.ppo import make_ppo_optimizer
     model = copy.deepcopy(algo.model).to(device)
     load_weights(model, rec["weights"])
+    target = None
+    if "target" in rec:
+        target = copy.deepcopy(algo.target_model).to(device)
+        load_weights(target, rec["target"])
     tx, grads = make_ppo_optimizer(algo.config), {}
     update = tx.update
 
@@ -2965,17 +2997,17 @@ def _ppo_replay(algo, rec: dict, device) -> dict:
         grads.update({n: t.detach().cpu().numpy() for n, t in g.items()})
         return update(params, g, state)
     tx.update = capture
-    step = make_ppo_sgd_step(model, M.categorical_logp,
-                             M.categorical_entropy, tx, algo.config)
+    step = make_step(model, target, tx)
     _, aux = step(to_device(rec["opt"], device),
                   {k: v.to(device) for k, v in rec["batch"].items()})
-    return {"aux": {k: float(v) for k, v in aux.items()}, "grads": grads,
-            "after": module_weights(model)}
+    return {"aux": {k: float(v) for k, v in aux.items() if v.dim() == 0},
+            "grads": grads, "after": module_weights(model)}
 
 
-def _ppo_step_check(algo, rec: dict, dev) -> dict:
-    """The learner's real first minibatch step, and a replay of it on the
-    card that also yields the gradients, against CPU copies: the loss
+def _step_check(algo, rec: dict, dev, make_step,
+                loss_key: str = "total_loss") -> dict:
+    """The learner's real first step, and a replay of it on the card
+    that also yields the gradients, against CPU copies: the loss
     relative to the CPU's; each gradient tensor's largest error relative
     to its largest element; the parameters after the step as one vector,
     ||card - cpu|| / ||cpu||.  Per element, Adam's first step is
@@ -2983,12 +3015,12 @@ def _ppo_step_check(algo, rec: dict, dev) -> dict:
     any update in [-lr, lr], and the rounding of its gradient picks it,
     so the parameters are compared as a whole.  Whether the real step
     equals its card replay bit for bit is reported.  The aux values are
-    reported too (policy_loss and kl sit near 0 at the first step, where
-    relative errors say nothing)."""
+    reported too (some sit near 0 at the first step, where relative
+    errors say nothing)."""
     import numpy as np
-    card = _ppo_replay(algo, rec, dev)
-    cpu = _ppo_replay(algo, rec, "cpu")
-    cpu_loss = cpu["aux"]["total_loss"]
+    card = _step_replay(algo, rec, dev, make_step)
+    cpu = _step_replay(algo, rec, "cpu", make_step)
+    cpu_loss = cpu["aux"][loss_key]
     norm = sum(float(np.sum(w ** 2)) for w in cpu["after"].values())
 
     def param_rel_err(after):
@@ -2996,14 +3028,14 @@ def _ppo_step_check(algo, rec: dict, dev) -> dict:
                    for n, w in cpu["after"].items())
         return (diff / norm) ** 0.5
 
-    return {
+    out = {
         "rows": int(rec["batch"]["obs"].shape[0]),
-        "card_loss": rec["aux"]["total_loss"],
-        "replay_card_loss": card["aux"]["total_loss"],
+        "card_loss": rec["aux"][loss_key],
+        "replay_card_loss": card["aux"][loss_key],
         "cpu_loss": cpu_loss,
-        "real_loss_rel_err": abs(rec["aux"]["total_loss"] - cpu_loss)
+        "real_loss_rel_err": abs(rec["aux"][loss_key] - cpu_loss)
         / abs(cpu_loss),
-        "loss_rel_err": abs(card["aux"]["total_loss"] - cpu_loss)
+        "loss_rel_err": abs(card["aux"][loss_key] - cpu_loss)
         / abs(cpu_loss),
         "aux_abs_err": {k: abs(card["aux"][k] - v)
                         for k, v in cpu["aux"].items()},
@@ -3019,21 +3051,39 @@ def _ppo_step_check(algo, rec: dict, dev) -> dict:
         "real_equals_card_replay": all(
             np.array_equal(rec["after"][n], w)
             for n, w in card["after"].items())}
+    out["max_rel_err"] = max(out[k] for k in (
+        "real_loss_rel_err", "loss_rel_err", "grad_rel_err",
+        "real_param_rel_err", "param_rel_err"))
+    return out
+
+
+def _ppo_step_check(algo, rec: dict, dev) -> dict:
+    """PPO's first minibatch step against CPU copies (``_step_check``)."""
+    from ray_tpu_torch.rl import models as M
+    from ray_tpu_torch.rl.ppo import make_ppo_sgd_step
+    return _step_check(algo, rec, dev, lambda model, _, tx: make_ppo_sgd_step(
+        model, M.categorical_logp, M.categorical_entropy, tx, algo.config))
+
+
+def _check_host(info: dict) -> dict:
+    """A rollout actor's ``host_info()``: it leases no GPU, never starts
+    CUDA, keeps its policy on the CPU and holds nothing of JAX or
+    ray_tpu.  Returns ``info`` with its modules cut to the forbidden
+    ones."""
+    bad = sorted(set(info.pop("modules")) & set(RUNTIME_FORBIDDEN))
+    info["forbidden_loaded"] = bad
+    check(info["cuda_visible_devices"] == "" and
+          not info["cuda_initialized"] and
+          info["policy_device"] == "cpu" and not bad,
+          f"a rollout actor reaches CUDA or JAX: {info}")
+    return info
 
 
 def _check_rollout_hosts(algo) -> list:
-    """Every rollout actor leases no GPU, never starts CUDA, keeps its
-    policy on the CPU and holds nothing of JAX or ray_tpu."""
+    """``_check_host`` on every rollout actor of ``algo``."""
     import ray_tpu_torch as rt
-    infos = rt.get([w.host_info.remote() for w in algo.workers.workers])
-    for info in infos:
-        bad = sorted(set(info.pop("modules")) & set(RUNTIME_FORBIDDEN))
-        info["forbidden_loaded"] = bad
-        check(info["cuda_visible_devices"] == "" and
-              not info["cuda_initialized"] and
-              info["policy_device"] == "cpu" and not bad,
-              f"a rollout actor reaches CUDA or JAX: {info}")
-    return infos
+    return [_check_host(info) for info in
+            rt.get([w.host_info.remote() for w in algo.workers.workers])]
 
 
 def _ppo_phase(dev) -> dict:
@@ -3346,6 +3396,612 @@ def rl_launches(rl: dict, kind: str) -> dict:
     """A kernel's launches on the rl phase's three paths."""
     return {f"rl_{part}": rl[part]["launches"][kind]
             for part in ("ppo", "impala", "dt")}
+
+
+# Phase rl_replay (see the module docstring): the replay and asynchronous
+# families on CartPole-v1 at each algorithm's own config widths, uncut,
+# in a runtime session of their own.  (a) DQN at DQNConfig's defaults
+# (hidden 256 x 256, dueling, double-Q, Adam 5e-4), rollouts as
+# tests/test_rl.py's DQN case (2 actors x 2 envs, fragment 64) and these
+# training settings: TD steps of 256 rows, 128 of them per 256 sampled
+# env steps, the target synced every 256 env steps (each iteration),
+# epsilon from 1 to 0.02 over 2,500 env steps, the global-norm clip at 10
+# (the config's default 0.5 is PPO's); the target is RLlib's
+# cartpole-dqn.yaml row (150 within 100,000 env steps).  Half the TD
+# steps, of 128 rows, fell short on the card once (best 121.48) and in
+# two of five seeds on the CPU (PERF.md, Findings).  (b) Ape-X at
+# ApexDQNConfig's defaults (4 actors, PER) for RR_APEX_ITERS train()
+# calls.  (c) R2D2 at R2D2Config's
+# defaults (LSTM 64, sequences of 40, burn-in 8) with 2 actors x 4 envs
+# for RR_R2D2_ITERS calls.  (d) APPO at APPOConfig's defaults with 2
+# actors x 4 envs for RR_APPO_ITERS calls.  (e) IMPALA and PPO through
+# .podracer() at benchmarks/rl_podracer.py's fleet.  (f)
+# Tuner(PPO.as_trainable(cfg)) over RR_TUNE_LRS at phase rl's PPO
+# settings, two half-card trials of RR_TUNE_ITERS iterations.
+RR_DQN = dict(num_rollout_workers=2, num_envs_per_worker=2,
+              rollout_fragment_length=64, train_batch_size=256,
+              n_updates_per_iter=128, target_update_freq=256,
+              epsilon_timesteps=2500, grad_clip=10.0)
+RR_APEX_ITERS = 10
+RR_R2D2 = dict(num_rollout_workers=2, num_envs_per_worker=4)
+RR_R2D2_ITERS = 12
+RR_APPO = dict(num_rollout_workers=2, num_envs_per_worker=4)
+RR_APPO_ITERS = 10
+RR_PODRACER = {
+    "impala": dict(num_rollout_workers=2, rollout_fragment_length=10,
+                   batches_per_step=16),
+    "ppo": dict(num_rollout_workers=2, rollout_fragment_length=40,
+                train_batch_size=160, sgd_minibatch_size=80,
+                num_sgd_iter=2)}
+RR_PODRACER_ITERS = 10
+RR_PODRACER_KILL_AT = 4          # IMPALA: kill actor 0 after this call
+RR_TUNE_LRS = (3e-4, 1e-4)
+RR_TUNE_ITERS = 3
+# Ape-X's ladder, the JAX package's formula: eps^(1 + i alpha / (N - 1))
+RR_APEX_LADDER = [0.4 ** (1.0 + i * 7.0 / 3) for i in range(4)]
+_ROLLOUT_KEYS = ("num_rollout_workers", "num_envs_per_worker",
+                 "rollout_fragment_length")
+
+
+def _rl_config(cls, settings: dict):
+    """``cls()`` on CartPole-v1 with ``settings`` split into rollout and
+    training settings, seed SEED."""
+    return (cls().environment("CartPole-v1")
+            .rollouts(**{k: v for k, v in settings.items()
+                         if k in _ROLLOUT_KEYS})
+            .training(**{k: v for k, v in settings.items()
+                         if k not in _ROLLOUT_KEYS})
+            .debugging(seed=SEED))
+
+
+def _zeroed_counters() -> dict:
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def _on_card(algo, dev, name: str) -> None:
+    check(all(p.device.type == dev.type for p in algo.model.parameters()),
+          f"the {name} learner is not on {dev}")
+
+
+def _no_launches(counters: dict, name: str) -> dict:
+    launches = {n: c.launches for n, c in counters.items()}
+    check(not any(launches.values()),
+          f"a kernel launched on the {name} path: {launches}")
+    return launches
+
+
+def _flat(module):
+    import torch
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+
+def _dqn_part(dev) -> dict:
+    import math
+
+    import torch
+    from ray_tpu_torch.rl import DQNConfig
+    from ray_tpu_torch.rl.dqn import make_dqn_td_step
+    counters = _zeroed_counters()
+    t_build = time.perf_counter()
+    algo = _rl_config(DQNConfig, RR_DQN).build()
+    out = {"build_s": time.perf_counter() - t_build}
+    try:
+        _on_card(algo, dev, "DQN")
+        cfg = algo.config
+        check((tuple(cfg.hidden), cfg.dueling, cfg.double_q, cfg.lr) ==
+              ((256, 256), True, True, 5e-4),
+              f"DQN's config widths moved: {cfg.to_dict()}")
+        rec, td_s, sync_s, step_s = {}, [], [], []
+        _record_first(algo, rec, "_td_step")
+        _timed(algo, "_replay_updates", td_s)
+        _timed(algo.workers, "sync_weights", sync_s)
+        _timed(algo, "training_step", step_s)
+        # the target holds still over the TD steps between two syncs, and
+        # a sync makes it an equal copy of the online network
+        real_sync, held = algo.sync_target, []
+        last = [_flat(algo.target_model).clone()]
+
+        def sync_target():
+            held.append(torch.equal(last[0], _flat(algo.target_model)))
+            real_sync()
+            check(torch.equal(_flat(algo.target_model), _flat(algo.model)),
+                  "DQN's target differs from the online network right "
+                  "after a sync")
+            last[0] = _flat(algo.target_model).clone()
+        algo.sync_target = sync_target
+        iters, best, reached = [], -math.inf, None
+        t0 = time.perf_counter()
+        while True:
+            n_td = len(td_s)
+            r = algo.train()
+            reward = r["episode_reward_mean"]
+            if not math.isnan(reward):
+                best = max(best, reward)
+            trained = len(td_s) > n_td
+            td = td_s[-1] if trained else 0.0
+            iters.append({"timesteps_total": r["timesteps_total"],
+                          "episode_reward_mean": reward,
+                          "iter_ms": r["time_this_iter_s"] * 1e3,
+                          "td_ms": td * 1e3,
+                          "sync_ms": sync_s[-1] * 1e3 if trained else 0.0,
+                          "sample_ms": (step_s[-1] - td - (
+                              sync_s[-1] if trained else 0.0)) * 1e3,
+                          "loss": r["info"].get("loss")})
+            if reward >= RL_TARGET:
+                reached = r["timesteps_total"]
+                break
+            if r["timesteps_total"] >= RL_MAX_STEPS:
+                break
+        wall = time.perf_counter() - t0
+        trained = [i for i in iters if i["td_ms"]]
+        out.update(
+            env_steps_to_target=reached, best_reward=best, wall_s=wall,
+            train_iters=len(iters), target_syncs=len(held),
+            env_steps_per_s=iters[-1]["timesteps_total"] / wall,
+            td_steps=len(trained) * cfg.n_updates_per_iter,
+            td_ms_per_step=statistics.median(
+                i["td_ms"] for i in trained) / cfg.n_updates_per_iter,
+            sample_ms_median=statistics.median(
+                i["sample_ms"] for i in iters),
+            sync_ms_median=statistics.median(i["sync_ms"] for i in trained),
+            iters=iters)
+        check(reached is not None and reached <= RL_MAX_STEPS,
+              f"DQN did not reach episode_reward_mean {RL_TARGET} within "
+              f"{RL_MAX_STEPS} env steps (best {best})")
+        out["target_held"] = sum(held)
+        check(held and all(held), f"DQN's target moved between two syncs "
+                                  f"({held.count(False)} of {len(held)})")
+        out["launches"] = _no_launches(counters, "DQN")
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the step gate needs fp32")
+        out["first_step"] = step = _step_check(
+            algo, rec, dev, lambda model, target, tx: make_dqn_td_step(
+                model, target, tx, cfg), loss_key="loss")
+        check(step["max_rel_err"] <= RL_STEP_RTOL,
+              f"DQN's first TD step on the card disagrees with the CPU: "
+              f"{step}")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _per_sync_cost(algo, reps: int = 50) -> dict:
+    """What the PER priority fetch costs a TD step: ``reps`` steps of the
+    learner's TD step on copies of its networks and optimizer state,
+    fetching ``|td_error|`` to the host after each (as the learner does)
+    or only once at the end, in turns (without, with, with, without)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rl.algorithm import to_device, to_host
+    from ray_tpu_torch.rl.dqn import DQN_KEYS, make_dqn_td_step
+    from ray_tpu_torch.rl.ppo import make_ppo_optimizer
+    model = copy.deepcopy(algo.model)
+    target = copy.deepcopy(algo.target_model)
+    tx = make_ppo_optimizer(algo.config)
+    opt = to_device(to_host(algo.opt_state), algo.device)
+    step = make_dqn_td_step(model, target, tx, algo.config)
+    batch = algo.stage_batch(algo.buffer.sample(
+        algo.round_minibatch(algo.config.train_batch_size)), DQN_KEYS)
+    opt, _ = step(opt, batch)
+    torch.cuda.synchronize()
+    times = {False: [], True: []}
+    for fetch in (False, True, True, False):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            opt, aux = step(opt, batch)
+            if fetch:
+                np.abs(aux["td_error"].cpu().numpy())
+        torch.cuda.synchronize()
+        times[fetch].append((time.perf_counter() - t0) / reps * 1e3)
+    no_fetch, fetch = min(times[False]), min(times[True])
+    return {"reps": reps, "td_ms_no_fetch": no_fetch,
+            "td_ms_fetch_each": fetch, "fetch_ms": fetch - no_fetch,
+            "runs": {"no_fetch": times[False], "fetch_each": times[True]}}
+
+
+def _apex_part(dev) -> dict:
+    import math
+
+    import numpy as np
+    from ray_tpu_torch.rl import ApexDQNConfig
+    counters = _zeroed_counters()
+    algo = (ApexDQNConfig().environment("CartPole-v1")
+            .debugging(seed=SEED).build())
+    try:
+        _on_card(algo, dev, "Ape-X")
+        eps = algo._epsilons
+        out = {"epsilons": eps, "formula": RR_APEX_LADDER}
+        check(eps == RR_APEX_LADDER and all(
+            a > b for a, b in zip(eps, eps[1:])),
+            f"Ape-X's epsilon ladder {eps} is not {RR_APEX_LADDER}, "
+            "strictly falling")
+        td_s, pri_s, losses = [], [], []
+        _timed(algo, "_replay_updates", td_s)
+        _timed(algo.buffer, "update_priorities", pri_s)
+        t0 = time.perf_counter()
+        for _ in range(RR_APEX_ITERS):
+            r = algo.train()
+            if "loss" in r["info"]:
+                losses.append(r["info"]["loss"])
+        wall = time.perf_counter() - t0
+        buf = algo.buffer
+        leaves = buf._tree[buf._tree_size:][:len(buf)]
+        n_upd = algo.config.n_updates_per_iter
+        out.update(
+            train_iters=RR_APEX_ITERS, wall_s=wall,
+            timesteps_total=r["timesteps_total"],
+            env_steps_per_s=r["timesteps_total"] / wall,
+            buffer_size=len(buf), losses=losses,
+            distinct_priorities=int(len(np.unique(leaves))),
+            td_iters=len(td_s),
+            td_ms_per_step=statistics.median(td_s) / n_upd * 1e3
+            if td_s else None,
+            priority_update_ms_per_step=statistics.median(pri_s) * 1e3
+            if pri_s else None)
+        check(losses and all(math.isfinite(x) for x in losses),
+              f"Ape-X's losses are not finite (or none): {losses}")
+        check(out["distinct_priorities"] > 1, "Ape-X's priorities never "
+                                              "moved from the initial one")
+        out["launches"] = _no_launches(counters, "Ape-X")
+        out["per_sync"] = _per_sync_cost(algo)
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _r2d2_part(dev) -> dict:
+    import math
+
+    from ray_tpu_torch.rl import R2D2Config
+    from ray_tpu_torch.rl.r2d2 import make_r2d2_td_step
+    counters = _zeroed_counters()
+    algo = _rl_config(R2D2Config, RR_R2D2).build()
+    try:
+        _on_card(algo, dev, "R2D2")
+        cfg = algo.config
+        check((cfg.lstm_size, cfg.rollout_fragment_length, cfg.burn_in) ==
+              (64, 40, 8), f"R2D2's config widths moved: {cfg.to_dict()}")
+        rec, td_s, infos = {}, [], []
+        _record_first(algo, rec, "_td_step")
+        _timed(algo, "_replay_updates", td_s)
+        t0 = time.perf_counter()
+        for _ in range(RR_R2D2_ITERS):
+            r = algo.train()
+            infos.append(r["info"])
+        wall = time.perf_counter() - t0
+        trained = [i for i in infos if "trained_steps" in i]
+        out = {"train_iters": RR_R2D2_ITERS, "wall_s": wall,
+               "timesteps_total": r["timesteps_total"],
+               "env_steps_per_s": r["timesteps_total"] / wall,
+               "td_iters": len(td_s),
+               "td_ms_per_step": statistics.median(td_s)
+               / cfg.n_updates_per_iter * 1e3 if td_s else None,
+               "trained_steps": [i["trained_steps"] for i in trained],
+               "losses": [i["loss"] for i in trained]}
+        check(trained and all(i["trained_steps"] > 0 for i in trained)
+              and all(math.isfinite(i["loss"]) for i in trained),
+              f"R2D2 trained on no step, or a loss is not finite: {out}")
+        out["launches"] = _no_launches(counters, "R2D2")
+        out["first_step"] = step = _step_check(
+            algo, rec, dev, lambda model, target, tx: make_r2d2_td_step(
+                model, target, tx, cfg), loss_key="loss")
+        check(step["max_rel_err"] <= RL_STEP_RTOL,
+              f"R2D2's first TD step on the card disagrees with the CPU: "
+              f"{step}")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _appo_part(dev) -> dict:
+    import math
+
+    from ray_tpu_torch.rl import APPOConfig
+    from ray_tpu_torch.rl import models as M
+    from ray_tpu_torch.rl.appo import make_appo_sgd_step
+    counters = _zeroed_counters()
+    algo = _rl_config(APPOConfig, RR_APPO).build()
+    try:
+        _on_card(algo, dev, "APPO")
+        cfg = algo.config
+        rec, infos = {}, []
+        _record_first(algo, rec, "_appo_step")
+        t0 = time.perf_counter()
+        for _ in range(RR_APPO_ITERS):
+            infos.append(algo.train()["info"])
+        wall = time.perf_counter() - t0
+        r = algo.iteration
+        out = {"train_iters": r, "wall_s": wall,
+               "timesteps_total": algo._timesteps_total,
+               "env_steps_per_s": algo._timesteps_total / wall,
+               "learner_steps": algo._learner_steps,
+               "mean_ratio": [i["mean_ratio"] for i in infos],
+               "total_losses": [i["total_loss"] for i in infos]}
+        check(all(x > 0 for x in out["mean_ratio"]) and all(
+            math.isfinite(x) for x in out["total_losses"]),
+            f"APPO's mean_ratio or loss is off: {out}")
+        out["launches"] = _no_launches(counters, "APPO")
+        out["first_step"] = step = _step_check(
+            algo, rec, dev, lambda model, target, tx: make_appo_sgd_step(
+                model, target, M.categorical_logp, M.categorical_entropy,
+                tx, cfg))
+        check(step["max_rel_err"] <= RL_STEP_RTOL,
+              f"APPO's first step on the card disagrees with the CPU: "
+              f"{step}")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def counted_learner_class():
+    """The podracer's LearnerActor with one read-only method, ``probe``:
+    its process's kernel launches, the cards it may see, its device and
+    where its parameters live."""
+    from ray_tpu_torch.rl.podracer.learner import LearnerActor
+
+    class CountedLearner(LearnerActor):
+        def probe(self) -> dict:
+            import os
+            return {"launches": {n: c.launches
+                                 for n, c in kernel_counters().items()},
+                    "cuda_visible_devices":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self.device),
+                    "param_devices": sorted({p.device.type for p in
+                                             self.model.parameters()})}
+    return CountedLearner
+
+
+def _podracer_run(dev, name: str) -> dict:
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rl import ImpalaConfig, PPOConfig
+    from ray_tpu_torch.rl.podracer import learner as podracer_learner
+    cls = counted_learner_class()
+    real = podracer_learner.learner_actor_class
+
+    def counted(num_cpus: float = 1.0, num_gpus: float = 0.0):
+        return ray_tpu_torch.remote(num_cpus=num_cpus,
+                                    num_gpus=num_gpus)(cls)
+    podracer_learner.learner_actor_class = counted
+    try:
+        cfg = _rl_config(ImpalaConfig if name == "impala" else PPOConfig,
+                         RR_PODRACER[name]).podracer()
+        t_build = time.perf_counter()
+        algo = cfg.build()
+    finally:
+        podracer_learner.learner_actor_class = real
+    out = {"build_s": time.perf_counter() - t_build}
+    ex = algo.podracer
+    # each stream's first fragment reports its actor's process (the
+    # actor runs its stream and takes no other call)
+    hosts, observe = {}, ex._observe_result
+
+    def observe_hosts(result, meta):
+        if "host" in meta:
+            hosts.setdefault(meta["worker_index"], []).append(meta["host"])
+        return observe(result, meta)
+    ex._observe_result = observe_hosts
+    try:
+        probe = ray_tpu_torch.get(ex.learner.probe.remote())
+        check(probe["device"].startswith(dev.type) and
+              probe["param_devices"] == [dev.type] and
+              probe["cuda_visible_devices"] not in (None, ""),
+              f"the podracer learner is not on a leased card: {probe}")
+        iters, killed = [], None
+        t0 = time.perf_counter()
+        for i in range(RR_PODRACER_ITERS):
+            r = algo.train()
+            iters.append({"timesteps_total": r["timesteps_total"],
+                          "iter_ms": r["time_this_iter_s"] * 1e3,
+                          "weight_version": r["info"]["weight_version"],
+                          "replacements": r["info"]["replacements"]})
+            if name == "impala" and i + 1 == RR_PODRACER_KILL_AT:
+                killed = ex._slots[0]["actor"]
+                ray_tpu_torch.kill(killed)
+        if killed is not None:
+            # the replacement streams: its first fragment reports its host
+            while len(hosts.get(0, ())) < 2 and \
+                    len(iters) < 2 * RR_PODRACER_ITERS:
+                r = algo.train()
+                iters.append({"timesteps_total": r["timesteps_total"],
+                              "iter_ms": r["time_this_iter_s"] * 1e3,
+                              "weight_version": r["info"]["weight_version"],
+                              "replacements": r["info"]["replacements"]})
+        wall = time.perf_counter() - t0
+        tel = ex.telemetry
+        out.update(
+            train_iters=len(iters), wall_s=wall, iters=iters,
+            frames=tel["frames"], env_frames_per_s=tel["frames"] / wall,
+            learner_steps=tel["learner_steps"],
+            versions_published=tel["versions_published"],
+            classic_submits_steady=tel["classic_submits_steady"],
+            slot_versions=[s["version"] for s in ex._slots],
+            weight_publish_ms_median=statistics.median(
+                tel["weight_publish_ms"]),
+            weight_pull_ms_median=statistics.median(tel["weight_pull_ms"]),
+            weight_pulls=len(tel["weight_pull_ms"]),
+            weight_adoption_s_median=statistics.median(
+                tel["weight_adoption_s"]),
+            replacements=tel["replacements"],
+            total_loss=r["info"]["total_loss"])
+        check(tel["classic_submits_steady"] == 0,
+              f"the podracer's steady state submitted classic tasks: "
+              f"{tel['classic_submits_steady']}")
+        check(all(v >= 2 for v in out["slot_versions"]),
+              f"an actor never adopted a published weight version: "
+              f"{out['slot_versions']}")
+        if killed is not None:
+            before = [it["iter_ms"] for it in iters[:RR_PODRACER_KILL_AT]]
+            after = [it["iter_ms"] for it in iters[RR_PODRACER_KILL_AT:]]
+            out["kill"] = {"after_iter": RR_PODRACER_KILL_AT,
+                           "largest_gap_ms": max(after),
+                           "median_before_ms": statistics.median(before)}
+            check(tel["replacements"] >= 1 and ex._slots[0]["actor"]
+                  is not killed, "the killed rollout actor was not replaced")
+        out["rollout_actors"] = hosts
+        check(sorted(hosts) == list(range(len(ex._slots))) and (
+            killed is None or len(hosts[0]) >= 2),
+            f"streams reported hosts {sorted(hosts)} for "
+            f"{len(ex._slots)} slots (the replacement's too)")
+        for reports in hosts.values():
+            for info in reports:
+                _check_host(info)
+        # save, then other weights, then restore: bit-equal
+        ckpt = algo.save()
+        saved = algo.get_full_state()
+        algo.set_weights({n: v + 1 for n, v in algo.get_weights().items()})
+        algo.restore(ckpt)
+        back = algo.get_full_state()
+        same = all(np.array_equal(back["params"][n], v)
+                   for n, v in saved["params"].items()) and all(
+            np.array_equal(back["opt_state"][m][n], v)
+            for m in saved["opt_state"] if m != "count"
+            for n, v in saved["opt_state"][m].items()) and all(
+            back[k] == saved[k] for k in ("_step_no", "_frames"))
+        out["restore_bit_equal"] = same
+        check(same and back["opt_state"]["count"]
+              == saved["opt_state"]["count"],
+              f"the podracer {name} restore does not give back the saved "
+              "state")
+        probe = ray_tpu_torch.get(ex.learner.probe.remote())
+        out["launches"] = probe["launches"]
+        check(not any(probe["launches"].values()),
+              f"a kernel launched in the podracer learner: {probe}")
+    finally:
+        algo.stop()
+    return out
+
+
+def counted_ppo_class():
+    """PPO whose ``train()`` result also carries its process's kernel
+    launches, the cards it may see, its learner's device and its pid."""
+    from ray_tpu_torch.rl import PPO
+
+    class CountedPPO(PPO):
+        def train(self):
+            import os
+            result = super().train()
+            result["probe"] = {
+                "launches": {n: c.launches
+                             for n, c in kernel_counters().items()},
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(self.device), "pid": os.getpid()}
+            return result
+    return CountedPPO
+
+
+def _as_trainable_part(dev, work: str) -> dict:
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig
+    from ray_tpu_torch.rl import PPOConfig
+    cls = counted_ppo_class()
+    cfg = _rl_config(PPOConfig, RL_PPO)
+    cfg.algo_class = cls
+    tuner = tune.Tuner(
+        cls.as_trainable(cfg),
+        param_space={"lr": tune.grid_search(list(RR_TUNE_LRS))},
+        tune_config=tune.TuneConfig(
+            metric="episode_reward_mean", mode="max",
+            trial_resources={"CPU": 1, "GPU": 0.5}),
+        run_config=RunConfig(name="rl_as_trainable", storage_path=work,
+                             stop={"training_iteration": RR_TUNE_ITERS}))
+    t0 = time.perf_counter()
+    grid = tuner.fit()
+    out = {"sweep_s": time.perf_counter() - t0}
+    check(not grid.errors, f"as_trainable trials failed: {grid.errors}")
+    check(len(grid) == len(RR_TUNE_LRS), f"{len(grid)} trials")
+    trials = []
+    for r in grid:
+        m, probe = r.metrics, r.metrics["probe"]
+        trials.append({"lr": r.config["lr"],
+                       "training_iteration": m["training_iteration"],
+                       "timesteps_total": m["timesteps_total"],
+                       "episode_reward_mean": m["episode_reward_mean"],
+                       "checkpoint": r.checkpoint is not None, **probe})
+        ckpt = r.checkpoint.to_dict() if r.checkpoint is not None else {}
+        check(m["training_iteration"] == RR_TUNE_ITERS
+              and ckpt.get("iteration") == RR_TUNE_ITERS,
+              f"trial lr {r.config['lr']} reported {m['training_iteration']}"
+              f" iterations, checkpoint {ckpt.get('iteration')}")
+        check(probe["device"].startswith(dev.type) and
+              probe["cuda_visible_devices"] not in (None, "") and
+              not any(probe["launches"].values()),
+              f"trial lr {r.config['lr']}: {probe}")
+    check({t["lr"] for t in trials} == set(RR_TUNE_LRS),
+          f"trials {[t['lr'] for t in trials]}")
+    out["trials"] = trials
+    out["launches"] = {n: sum(t["launches"][n] for t in trials)
+                       for n in kernel_counters()}
+    return out
+
+
+def rl_replay_phase(dev) -> dict:
+    """The replay and asynchronous RL families on the port's runtime, in a
+    session of its own, as the module docstring says: (a) DQN to the
+    CartPole-v1 target, (b) Ape-X, (c) R2D2, (d) APPO, (e) IMPALA and
+    PPO through the podracer executor, (f) Tuner(PPO.as_trainable)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_rl_replay_")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8)
+    node = ray_tpu_torch.api._node
+    out = {"init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir}
+    try:
+        for part, run in (("dqn", _dqn_part), ("apex", _apex_part),
+                          ("r2d2", _r2d2_part), ("appo", _appo_part)):
+            t1 = time.perf_counter()
+            out[part] = run(dev)
+            out[part]["part_s"] = time.perf_counter() - t1
+        for name in RR_PODRACER:
+            t1 = time.perf_counter()
+            out[f"podracer_{name}"] = _podracer_run(dev, name)
+            out[f"podracer_{name}"]["part_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["as_trainable"] = _as_trainable_part(dev, work)
+        out["as_trainable"]["part_s"] = time.perf_counter() - t1
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.perf_counter() - t0
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
+RR_PARTS = ("dqn", "apex", "r2d2", "appo", "podracer_impala",
+            "podracer_ppo", "as_trainable")
+
+
+def rl_replay_launches(rr: dict, kind: str) -> dict:
+    """A kernel's launches on the rl_replay phase's paths."""
+    return {f"rl_{part}": rr[part]["launches"][kind] for part in RR_PARTS}
 
 
 def attn_bound(kind: str, q, k, causal: bool) -> dict:
@@ -3851,6 +4507,28 @@ def splash_phase(dev) -> dict:
     at_hd256 = attention_case(dev, gen, "splash", 2, 1024, 16, 16, 256,
                               bf16, True, timed=True)
     torch.cuda.empty_cache()
+    # head_dim 32 (the Decision Transformer's heads) at DT's batch and
+    # heads, causal, timed, in fp32 (CUDA cores) and bf16 (tensor cores).
+    # DT's 60 tokens are not a multiple of the library's 128-row blocks,
+    # which the port refuses before any launch as the JAX function does,
+    # so the cases run at the shortest length splash takes
+    from ray_tpu_torch.ops.splash import BLOCK, splash_attention
+    hd32 = {label: attention_case(dev, gen, "splash", DT_BATCH, BLOCK,
+                                  DT_HEADS, DT_HEADS, DT_HEAD_DIM, dtype,
+                                  True, timed=True)
+            for label, dtype in (("hd32_shape", fp32),
+                                 ("hd32_bf16_shape", bf16))}
+    q = torch.randn(DT_BATCH, 3 * DT_CONTEXT, DT_HEADS, DT_HEAD_DIM,
+                    generator=gen, device=dev)
+    try:
+        splash_attention(q, q, q, causal=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "should divide" in refused,
+          f"splash at {list(q.shape)} was not refused by the block rule: "
+          f"{refused}")
+    torch.cuda.empty_cache()
     coverage = [attention_case(dev, gen, "splash", *c) for c in (
         (2, 2048, 32, 8, 128, bf16, True),
         (2, 512, 8, 8, 64, bf16, False, 1024),
@@ -3863,8 +4541,8 @@ def splash_phase(dev) -> dict:
         (2, 512, 8, 2, 256, bf16, True),
         (1, 256, 4, 4, 256, bf16, False, 512),
         (2, 256, 4, 2, 256, bf16, True, None, False, False, True))]
-    return {"slice_shape": at_slice, "hd256_shape": at_hd256,
-            "coverage": coverage,
+    return {"slice_shape": at_slice, "hd256_shape": at_hd256, **hd32,
+            "dt_len_refused": refused, "coverage": coverage,
             "fp32_hd256": fp32_wide_case(dev, gen, "splash"),
             "tc_kernel": tc_usage("splash")}
 
@@ -4225,7 +4903,8 @@ ENCODER_BATCH, ENCODER_SEQ, DECODER_SEQ = 16, 512, 128
 # flash_phase's shapes of the training paths, as the kernel rows name
 # them (the first three timed)
 PATH_SHAPES = ("vit", "large", "mixtral", "bert", "t5_cross", "t5_self",
-               "air_predict", "air_tune", "dt", "dt_bf16")
+               "air_predict", "air_tune", "dt", "dt_bf16", "hd32",
+               "hd32_bf16")
 GREEDY_PROMPTS, GREEDY_TOKENS = 4, 32
 # the greedy decode's query and key projections are scaled by this over
 # init_weights' draw (attention logits by its square), see
@@ -4712,6 +5391,10 @@ def main() -> int:
     emit({"phase": "rl", **rl})
     torch.cuda.empty_cache()
 
+    rl_replay = rl_replay_phase(dev)
+    emit({"phase": "rl_replay", **rl_replay})
+    torch.cuda.empty_cache()
+
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
     torch.cuda.empty_cache()
@@ -4774,7 +5457,8 @@ def main() -> int:
                for path, run in family_runs.items()},
             **air_launches(air, "paged_attention"),
             **air_batch_launches(air_batch, "paged_attention"),
-            **rl_launches(rl, "paged_attention")},
+            **rl_launches(rl, "paged_attention"),
+            **rl_replay_launches(rl_replay, "paged_attention")},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -4810,7 +5494,8 @@ def main() -> int:
                    for path, fam in family_runs.items()},
                 **air_launches(air, kind),
                 **air_batch_launches(air_batch, kind),
-                **rl_launches(rl, kind)}
+                **rl_launches(rl, kind),
+                **rl_replay_launches(rl_replay, kind)}
             for label in PATH_SHAPES:
                 at = phase.get(f"{label}_shape")
                 if at is not None:
@@ -4843,7 +5528,7 @@ def main() -> int:
          "dense_slice": dense, "prefix_handoff": prefix,
          "runtime": runtime, "serve": served, "flash": flash,
          "splash": splash, "train": train, "air": air,
-         "air_batch": air_batch, "rl": rl,
+         "air_batch": air_batch, "rl": rl, "rl_replay": rl_replay,
          "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,

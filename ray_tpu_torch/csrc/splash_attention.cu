@@ -58,8 +58,10 @@
 // (one bf16 mma), and writes dq = bf16(bf16(dS.K) * scale).  It needs
 // every row of q, k, v and dout on 16 bytes.
 //
-// The bf16 kernels take head_dim 64, 128 and 256, as K1-K3 do
-// (csrc/flash_attention.cu).
+// The bf16 kernels take head_dim 32, 64, 128 and 256, as K1-K3 do
+// (csrc/flash_attention.cu): at 32 a tile row is 4 chunks of 16 bytes, and
+// the swizzle XORs the chunk with (row / 2) % 4 (attention_tc_common.cuh
+// swz).
 //
 // What bounds them on this card: operations.  At the training shapes
 // (S = 1024, head_dim 64) each (query, key) pair costs 4-8 * head_dim flops
@@ -67,7 +69,7 @@
 // cores, not the memory, become the limit.  K5-fwd, K5-dQ and K5-dKV on
 // fp32 are the first, simple versions: the products run as fp32 FMAs on
 // the CUDA cores from shared memory, as K1-K3 on fp32 do
-// (csrc/flash_attention.cu), at head_dim 64, 128 and 256.  At 256 a K5-dQ
+// (csrc/flash_attention.cu), at head_dim 32, 64, 128 and 256.  At 256 a K5-dQ
 // block owns a 32-row q tile and a K5-dKV block a 32-row kv tile, as K2
 // and K3 do there (64-row fp32 tiles of every operand do not fit a
 // block); each walks the table list of the 64-row tile that holds it,
@@ -709,6 +711,7 @@ int tc_usage(int kind, int* out) {
 }
 
 int tc_usage(int kind, int hd, int* out) {
+  if (hd == 32) return tc_usage<32>(kind, out);
   if (hd == 64) return tc_usage<64>(kind, out);
   if (hd == 128) return tc_usage<128>(kind, out);
   if (hd == 256) return tc_usage<256>(kind, out);
@@ -717,6 +720,7 @@ int tc_usage(int kind, int hd, int* out) {
 
 int fp32_usage(int kind, int hd, int* out) {
   if (kind < kFwd || kind > kDkv) return cudaErrorInvalidValue;
+  if (hd == 32) return fp32_usage<32>(kind, out);
   if (hd == 64) return fp32_usage<64>(kind, out);
   if (hd == 128) return fp32_usage<128>(kind, out);
   if (hd == 256) return fp32_usage<256>(kind, out);
@@ -735,7 +739,7 @@ size_t rt_splash_smem_bytes(int kind, int dtype, int hd) {
 }
 
 // Registers per thread, local memory bytes per thread and resident blocks
-// per SM of K5-fwd's bf16 kernel at head_dim hd (64, 128 or 256), as the
+// per SM of K5-fwd's bf16 kernel at head_dim hd (32, 64, 128 or 256), as the
 // CUDA runtime reports them, into out[3]; the cudaError_t of the query.
 int rt_splash_fwd_usage(int hd, int* out) { return tc_usage(kFwd, hd, out); }
 
@@ -758,7 +762,7 @@ int rt_splash_fp32_usage(int kind, int hd, int* out) {
 // table on the device: the row lists (q tile -> kv tiles) for kinds 0 and 1,
 // the column lists (kv tile -> q tiles) for kind 2.  scale is sm_scale
 // rounded to the input dtype.  Pointers a kind does not use may be null.
-// head_dim is 64, 128 or 256.  K5-fwd on bf16
+// head_dim is 32, 64, 128 or 256.  K5-fwd on bf16
 // needs the q, k and v pointers and strides on 16 bytes, K5-dQ and K5-dKV
 // on bf16 those of q, k, v and dout (cudaErrorMisalignedAddress
 // otherwise).  Returns the cudaError_t of the launch.
@@ -801,9 +805,11 @@ int rt_splash_attention(int kind, int dtype, const void* q, const void* k,
   p.Skv = Skv;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 32) return run<float, 32>(kind, p, st);
   if (dtype == 0 && hd == 64) return run<float, 64>(kind, p, st);
   if (dtype == 0 && hd == 128) return run<float, 128>(kind, p, st);
   if (dtype == 0 && hd == 256) return run<float, 256>(kind, p, st);
+  if (dtype == 1 && hd == 32) return run<__nv_bfloat16, 32>(kind, p, st);
   if (dtype == 1 && hd == 64) return run<__nv_bfloat16, 64>(kind, p, st);
   if (dtype == 1 && hd == 128) return run<__nv_bfloat16, 128>(kind, p, st);
   if (dtype == 1 && hd == 256) return run<__nv_bfloat16, 256>(kind, p, st);

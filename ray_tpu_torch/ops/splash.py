@@ -20,8 +20,8 @@ table in three kernels of ``ray_tpu_torch/csrc/splash_attention.cu``:
     bf16 inputs the tensor-core dK/dV it shares with K3
     (``csrc/attention_bwd_dkv_tc.cuh``), with the same row rule.
 
-They take the head_dims of the flash kernels: 64, 128 and 256, in fp32
-and in bf16.
+They take the head_dims of the flash kernels (``_HEAD_DIMS``): 32, 64,
+128 and 256, in fp32 and in bf16.
 
 Semantics kept from the JAX side:
 
@@ -57,7 +57,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ray_tpu_torch.ops.flash_attention import _DTYPES
+from ray_tpu_torch.ops.flash_attention import _DTYPES, _HEAD_DIMS  # noqa: F401
 from ray_tpu_torch.ops.flash_attention import _check as _check_flash
 from ray_tpu_torch.ops.flash_attention import (_expand, _fold,
                                                check_rows_aligned)

@@ -8,21 +8,24 @@ learner is one device, the card unless the caller asks for the CPU
 (``.resources(device="cpu")``), where the JAX package's learner is a
 pjit step over a device mesh.  A mesh of more than one device waits for
 multi-device training (ROADMAP.md, Queue 1, item 4) and raises, as
-``ScalingConfig(mesh_shape=...)`` does; so does the podracer executor,
-which comes with APPO in a later RL slice.
+``ScalingConfig(mesh_shape=...)`` does.  ``.podracer()`` runs IMPALA and
+PPO on the streaming learner–actor executor (``rl/podracer/``): the
+learner is then an actor that leases the card, and the driver starts no
+CUDA.
 
-The learner keeps its network as an ``nn.Module`` (``self.model``) and
-its optimizer state as a dict of tensors (``self.opt_state``);
-``full_training_state`` snapshots both as host numpy arrays, and
-``save`` / ``restore`` carry them through the port's
-``air/checkpoint.py``.
+The learner keeps its network as an ``nn.Module`` (``self.model``), a
+target network where the algorithm has one as a separate module
+(``self.target_model``, a copy: the optimizer updates ``self.model`` in
+place, so an alias would track it), and its optimizer state as a dict
+of tensors (``self.opt_state``); ``full_training_state`` snapshots them
+as host numpy arrays, and ``save`` / ``restore`` carry them through the
+port's ``air/checkpoint.py``.
 """
-
 from __future__ import annotations
 
 import math
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,8 +36,8 @@ from ray_tpu_torch.air.config import MULTI_DEVICE
 from ray_tpu_torch.rl.policy import load_weights, module_weights
 from ray_tpu_torch.rl.worker_set import WorkerSet
 
-PODRACER_LATER = ("the podracer executor comes with APPO and rl/podracer/ "
-                  "in a later RL slice (ROADMAP.md, Queue 1, item 4, RL)")
+# schedule counters a checkpoint carries (the JAX package's)
+_COUNTER_ATTRS = ("_steps_since_target_sync",)
 
 
 def to_host(tree):
@@ -66,19 +69,34 @@ def to_device(tree, device):
 
 def full_training_state(algo) -> dict:
     """Host-side snapshot of a learner's complete training state — its
-    network's parameters and its optimizer's state (moments and count),
-    as numpy arrays — shared by the Algorithm subclasses and the offline
-    learners so the checkpoint format cannot drift per algorithm."""
-    return {"_format": "v2", "params": to_host(algo.params),
-            "opt_state": to_host(algo.opt_state)}
+    network's parameters, its target network's where it has one, its
+    optimizer's state (moments and count), as numpy arrays, and its
+    schedule counters — shared by the Algorithm subclasses, the offline
+    learners and the podracer learner, so the checkpoint format cannot
+    drift per algorithm."""
+    out = {"_format": "v2", "params": to_host(algo.params),
+           "opt_state": to_host(algo.opt_state)}
+    target = getattr(algo, "target_model", None)
+    if target is not None:
+        out["target_params"] = module_weights(target)
+    counters = {c: int(getattr(algo, c)) for c in _COUNTER_ATTRS
+                if hasattr(algo, c)}
+    if counters:
+        out["_counters"] = counters
+    return out
 
 
 def apply_full_training_state(algo, full: dict) -> None:
     """Put a ``full_training_state`` snapshot back on the learner's
-    device; the parameters go into ``algo.model`` in place, so the
-    tensors the optimizer updates stay the model's."""
+    device; the parameters go into ``algo.model`` (and the target's into
+    ``algo.target_model``) in place, so the tensors the optimizer
+    updates stay the model's."""
     load_weights(algo.model, full["params"])
+    if "target_params" in full:
+        load_weights(algo.target_model, full["target_params"])
     algo.opt_state = to_device(full["opt_state"], algo.device)
+    for c, v in (full.get("_counters") or {}).items():
+        setattr(algo, c, v)
 
 
 def init_actor_critic(cfg, device):
@@ -137,6 +155,8 @@ class AlgorithmConfig:
         self.seed: Optional[int] = None
         self.mesh_shape: Optional[Dict[str, int]] = None
         self.device: Any = None           # the learner's; None: the card
+        self.use_podracer = False
+        self.podracer_kwargs: Dict[str, Any] = {}
         self.extra: Dict[str, Any] = {}
 
     # -- fluent sections (reference names) --------------------------------
@@ -193,10 +213,11 @@ class AlgorithmConfig:
 
     def podracer(self, enabled: bool = True,
                  **kwargs) -> "AlgorithmConfig":
-        """The streaming learner–actor executor is not ported yet:
-        ``enabled=True`` raises."""
-        if enabled:
-            raise NotImplementedError(PODRACER_LATER)
+        """Run on the streaming learner–actor executor (``rl/podracer/``)
+        instead of the blocking loop.  Extra kwargs (e.g.
+        ``strict_zero_submit=False``) reach the PodracerExecutor."""
+        self.use_podracer = enabled
+        self.podracer_kwargs.update(kwargs)
         return self
 
     def build(self) -> "Algorithm":
@@ -212,7 +233,13 @@ class Algorithm:
     """The training loop: owns the WorkerSet + learner; subclasses
     implement ``setup_learner`` (which sets ``self.model``,
     ``self.opt_state`` and the step on ``self.device``, the learner's
-    one device) and ``training_step()`` returning a result dict."""
+    one device) and ``training_step()`` returning a result dict.  With
+    ``config.podracer()`` the loop is the PodracerExecutor's and the
+    learner lives in its actor."""
+
+    # subclasses that ride the podracer executor name their step
+    # builder here ("impala" / "ppo"); None: the blocking loop only
+    podracer_algo: Optional[str] = None
 
     def __init__(self, config: AlgorithmConfig):
         self.config = config
@@ -221,12 +248,26 @@ class Algorithm:
         self.iteration = 0
         self._timesteps_total = 0
         self._episode_history: List[Dict[str, float]] = []
+        if getattr(config, "use_podracer", False):
+            if self.podracer_algo is None:
+                raise ValueError(
+                    f"{type(self).__name__} does not support the "
+                    "podracer executor (only IMPALA/PPO do)")
+            from ray_tpu_torch.rl.podracer import PodracerExecutor
+            check_mesh(config.mesh_shape)
+            self.workers = None
+            self.podracer = PodracerExecutor(
+                self.podracer_algo, config,
+                **getattr(config, "podracer_kwargs", {}))
+            return
+        self.podracer = None
         self.device = learner_device(config)
         worker_kwargs = dict(
             num_envs=config.num_envs_per_worker,
             rollout_fragment_length=config.rollout_fragment_length,
             gamma=config.gamma, lam=config.lam,
             hidden=config.hidden, seed=config.seed)
+        worker_kwargs.update(self.extra_worker_kwargs(config))
         self.setup_learner()
         self.workers = WorkerSet(
             config.env_spec,
@@ -260,7 +301,24 @@ class Algorithm:
         self._timesteps_total += train_batch.count
         return train_batch
 
+    def round_minibatch(self, size: int) -> int:
+        """The minibatch size the learner takes: ``size`` itself (at least
+        1) on the port's one device, where the JAX package rounds it to a
+        multiple of the mesh's data shards."""
+        return max(size, 1)
+
+    def stage_batch(self, sample, keys) -> Dict[str, torch.Tensor]:
+        """The columns of ``sample`` named in ``keys`` as copies on the
+        learner's device (``to_device``)."""
+        return to_device({k: v for k, v in sample.items() if k in keys},
+                         self.device)
+
     # -- subclass surface --------------------------------------------------
+    @classmethod
+    def extra_worker_kwargs(cls, config: AlgorithmConfig) -> Dict[str, Any]:
+        """Extra RolloutWorker kwargs (e.g. DQN selects the Q policy)."""
+        return {}
+
     def setup_learner(self) -> None:
         raise NotImplementedError
 
@@ -270,22 +328,38 @@ class Algorithm:
     def get_weights(self) -> Any:
         """The learner network's weights as host numpy arrays: what the
         rollout workers receive, never a CUDA tensor."""
+        if self.podracer is not None:
+            return self.podracer.get_weights()
         return module_weights(self.model)
 
     def set_weights(self, weights: Any) -> None:
+        if self.podracer is not None:
+            self.podracer.set_weights(weights)
+            return
         load_weights(self.model, weights)
 
     # -- public API --------------------------------------------------------
     def train(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
-        result = self.training_step()
-        metrics = self._collect_episode_metrics()
+        if self.podracer is not None:
+            result = self.podracer.train_iteration()
+            self._timesteps_total = result.pop("timesteps_this_iter")
+            # episode metrics ride the fragment stream's meta (no extra
+            # foreach_worker round trip in podracer mode)
+            self._episode_history = \
+                self.podracer.collect_episode_metrics()
+            metrics = self._summarize_episodes()
+            restarts = self.podracer.telemetry["replacements"]
+        else:
+            result = self.training_step()
+            metrics = self._collect_episode_metrics()
+            restarts = self.workers.num_restarts
         self.iteration += 1
         result.update(metrics)
         result["training_iteration"] = self.iteration
         result["timesteps_total"] = self._timesteps_total
         result["time_this_iter_s"] = time.perf_counter() - t0
-        result["num_worker_restarts"] = self.workers.num_restarts
+        result["num_worker_restarts"] = restarts
         return result
 
     def _summarize_episodes(self) -> Dict[str, Any]:
@@ -308,11 +382,18 @@ class Algorithm:
 
     def get_full_state(self):
         """Complete training state for checkpointing — the network, the
-        optimizer's moments and counters, as host numpy arrays (a resumed
-        run continues training; it does not restart the moments)."""
+        target network, the optimizer's moments and counters, the sync
+        counters, as host numpy arrays (a resumed run continues training;
+        it does not restart the moments).  Under the podracer executor,
+        the learner actor's."""
+        if self.podracer is not None:
+            return self.podracer.get_full_state()
         return full_training_state(self)
 
     def set_full_state(self, state) -> None:
+        if self.podracer is not None:
+            self.podracer.set_full_state(state)
+            return
         apply_full_training_state(self, state)
 
     def save(self) -> Checkpoint:
@@ -325,7 +406,38 @@ class Algorithm:
         self.set_full_state(d["state"])
         self.iteration = d.get("iteration", 0)
         self._timesteps_total = d.get("timesteps_total", 0)
-        self.workers.sync_weights(self.get_weights())
+        # podracer: set_full_state published a new version, which every
+        # actor adopts at its next fragment boundary
+        if self.podracer is None:
+            self.workers.sync_weights(self.get_weights())
 
     def stop(self) -> None:
+        if self.podracer is not None:
+            self.podracer.stop()
+            return
         self.workers.stop()
+
+    @classmethod
+    def as_trainable(cls, config: AlgorithmConfig) -> Callable:
+        """Tune integration: a function trainable that runs this algorithm
+        on ``config`` with the trial's settings, reporting each
+        ``train()`` result with a checkpoint.  Its learner takes the card
+        that the trial's actor leases (``TuneConfig(trial_resources=
+        {"GPU": ...})``)."""
+        def _trainable(trial_config: Dict[str, Any]):
+            import copy
+
+            from ray_tpu_torch.air import session
+            cfg = copy.deepcopy(config)
+            cfg.training(**trial_config)
+            algo = cfg.algo_class(cfg)
+            try:
+                ckpt = session.get_checkpoint()
+                if ckpt is not None:
+                    algo.restore(ckpt)
+                while True:
+                    result = algo.train()
+                    session.report(result, checkpoint=algo.save())
+            finally:
+                algo.stop()
+        return _trainable

@@ -144,6 +144,7 @@ def make_impala_sgd_step(model, logp_fn, ent_fn, tx: RMSProp, cfg):
 
 
 class Impala(Algorithm):
+    podracer_algo = "impala"
 
     def setup_learner(self) -> None:
         cfg: ImpalaConfig = self.config

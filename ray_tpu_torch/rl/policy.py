@@ -9,9 +9,12 @@ own copy of the network on the card and sends the weights back as a
 dict of numpy arrays keyed by state-dict name (``get_weights`` /
 ``set_weights``), so no CUDA tensor ever reaches a CPU-only actor.
 
-``QPolicy``, ``R2D2Policy``, ``DDPGPolicy`` and ``SACPolicy`` come with
-their algorithms (ROADMAP.md, Queue 1, item 4, RL); until then they
-raise ``NotImplementedError``.
+``QPolicy`` (DQN, SimpleQ, Ape-X) and ``R2D2Policy`` are epsilon-greedy
+over a ``QNetwork`` / ``RecurrentQNetwork``; their exploration draws come
+from the policy's ``torch.Generator``, so they agree with JAX's only in
+distribution, while the greedy actions and Q-values agree numerically.
+``DDPGPolicy`` and ``SACPolicy`` come with their algorithms (ROADMAP.md,
+Queue 1, item 4, RL); until then they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,10 @@ def load_weights(module: torch.nn.Module, weights: Weights) -> None:
     if missing:
         raise KeyError(f"weights and module disagree on {sorted(missing)}")
     for n, t in sd.items():
-        t.copy_(torch.as_tensor(np.asarray(weights[n])))
+        w = weights[n]
+        if isinstance(w, np.ndarray) and not w.flags.writeable:
+            w = w.copy()            # a read-only view of the store
+        t.copy_(torch.as_tensor(w))
 
 
 def action_dims(observation_space, action_space) -> Tuple[int, int, bool]:
@@ -104,6 +110,112 @@ class JaxPolicy:
         load_weights(self.model, weights)
 
 
+def _epsilon_greedy(gen: torch.Generator, greedy: torch.Tensor,
+                    n_actions: int, epsilon: float) -> torch.Tensor:
+    """Each row's greedy action, or with probability ``epsilon`` one of
+    ``n_actions`` drawn uniformly (the JAX package's mix-in)."""
+    n = greedy.shape[0]
+    randoms = torch.randint(0, n_actions, (n,), generator=gen,
+                            device=greedy.device)
+    flip = torch.rand(n, generator=gen, device=greedy.device) < epsilon
+    return torch.where(flip, randoms, greedy)
+
+
+class QPolicy:
+    """Epsilon-greedy policy over a ``QNetwork`` (DQN-family rollouts).
+
+    The same ``compute_actions`` triple as JaxPolicy, so RolloutWorker
+    drives either: logp is zeros (no likelihoods) and the value column
+    carries max-Q (for metrics only).  ``dueling`` must match the
+    learner's network, or the weight sync's names disagree."""
+
+    def __init__(self, observation_space, action_space,
+                 hidden=(256, 256), seed: int = 0, epsilon: float = 1.0,
+                 dueling: bool = True, *, device=None):
+        if isinstance(action_space, Box):
+            raise ValueError("QPolicy requires a discrete action space")
+        self.observation_space = observation_space
+        self.action_space = action_space
+        self.epsilon = epsilon
+        self.device = resolve_device(device)
+        obs_dim, act_dim, _ = action_dims(observation_space, action_space)
+        self.model = M.init_params(M.QNetwork(
+            obs_dim, act_dim, tuple(hidden), dueling, device=self.device),
+            seed)
+        self.model.eval()
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    def set_epsilon(self, epsilon: float) -> None:
+        self.epsilon = float(epsilon)
+
+    def _act(self, q: torch.Tensor, explore: bool):
+        greedy = torch.argmax(q, dim=-1)
+        if explore and self.epsilon > 0.0:
+            actions = _epsilon_greedy(self._gen, greedy,
+                                      self.action_space.n, self.epsilon)
+        else:
+            actions = greedy
+        # JAX's argmax actions are int32
+        return (actions.int().cpu().numpy(), np.zeros(actions.shape[0]),
+                q.max(-1).values.cpu().numpy())
+
+    @torch.inference_mode()
+    def compute_actions(self, obs: np.ndarray, *, explore: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        obs = torch.as_tensor(np.asarray(obs, np.float32),
+                              device=self.device)
+        return self._act(self.model(obs), explore)
+
+    def get_weights(self) -> Weights:
+        return module_weights(self.model)
+
+    def set_weights(self, weights: Weights) -> None:
+        load_weights(self.model, weights)
+
+
+class R2D2Policy(QPolicy):
+    """Recurrent epsilon-greedy policy (R2D2 rollouts): an LSTM carry
+    (c, h) per env, stepped one timestep at a time; ``reset_carry`` zeroes
+    the rows of envs whose episode ended.  ``carry`` reads as numpy."""
+
+    def __init__(self, observation_space, action_space,
+                 hidden=(64,), seed: int = 0, epsilon: float = 1.0,
+                 lstm_size: int = 64, num_envs: int = 1, *, device=None):
+        if isinstance(action_space, Box):
+            raise ValueError("R2D2Policy requires a discrete action space")
+        self.observation_space = observation_space
+        self.action_space = action_space
+        self.epsilon = epsilon
+        self.num_envs = num_envs
+        self.device = resolve_device(device)
+        obs_dim, act_dim, _ = action_dims(observation_space, action_space)
+        self.model = M.init_params(M.RecurrentQNetwork(
+            obs_dim, act_dim, tuple(hidden), lstm_size, device=self.device),
+            seed)
+        self.model.eval()
+        self._carry = self.model.initial_state(num_envs)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+
+    @property
+    def carry(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The (c, h) carry, [num_envs, lstm_size] each, as numpy."""
+        return tuple(t.cpu().numpy() for t in self._carry)
+
+    def reset_carry(self, done_mask: np.ndarray) -> None:
+        """Zero the carry for envs whose episode just ended."""
+        keep = 1.0 - torch.as_tensor(np.asarray(done_mask, np.float32),
+                                     device=self.device)[:, None]
+        self._carry = tuple(c * keep for c in self._carry)
+
+    @torch.inference_mode()
+    def compute_actions(self, obs: np.ndarray, *, explore: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        obs = torch.as_tensor(np.asarray(obs, np.float32),
+                              device=self.device)
+        q, self._carry = self.model(obs[:, None, :], self._carry)
+        return self._act(q[:, 0], explore)
+
+
 def _later(name: str, algos: str):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
@@ -112,7 +224,5 @@ def _later(name: str, algos: str):
                            "__doc__": f"Not ported yet: see {algos}."})
 
 
-QPolicy = _later("QPolicy", "DQN, SimpleQ and Ape-X")
-R2D2Policy = _later("R2D2Policy", "R2D2")
 DDPGPolicy = _later("DDPGPolicy", "DDPG/TD3")
 SACPolicy = _later("SACPolicy", "SAC")

@@ -91,6 +91,7 @@ def make_ppo_sgd_step(model, logp_fn, ent_fn, tx: AdamW, cfg):
 
 
 class PPO(Algorithm):
+    podracer_algo = "ppo"
 
     def setup_learner(self) -> None:
         cfg: PPOConfig = self.config

@@ -3,9 +3,10 @@ of ray_tpu/rl/registry.py).
 
 Analog of RLlib's rllib/algorithms/registry.py (get_algorithm_class) —
 the string lookup used by the CLI, Tune experiment specs, and tests.
-The port resolves the algorithms it has: PPO, IMPALA, BC, MARWIL and
-DT.  Every other name of the JAX package's registry raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+The port resolves the algorithms it has: PPO, IMPALA, APPO, DQN,
+SimpleQ, Ape-X, R2D2, BC, MARWIL and DT.  Every other name of the JAX
+package's registry raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.
 """
 
 from __future__ import annotations
@@ -40,6 +41,31 @@ def _impala():
     return Impala, ImpalaConfig
 
 
+def _appo():
+    from ray_tpu_torch.rl.appo import APPO, APPOConfig
+    return APPO, APPOConfig
+
+
+def _dqn():
+    from ray_tpu_torch.rl.dqn import DQN, DQNConfig
+    return DQN, DQNConfig
+
+
+def _simple_q():
+    from ray_tpu_torch.rl.simple_q import SimpleQ, SimpleQConfig
+    return SimpleQ, SimpleQConfig
+
+
+def _apex_dqn():
+    from ray_tpu_torch.rl.apex_dqn import ApexDQN, ApexDQNConfig
+    return ApexDQN, ApexDQNConfig
+
+
+def _r2d2():
+    from ray_tpu_torch.rl.r2d2 import R2D2, R2D2Config
+    return R2D2, R2D2Config
+
+
 def _bc():
     from ray_tpu_torch.rl.offline import BC, BCConfig
     return BC, BCConfig
@@ -58,6 +84,11 @@ def _dt():
 _REGISTRY = {
     "ppo": _ppo,
     "impala": _impala,
+    "appo": _appo,
+    "dqn": _dqn,
+    "simpleq": _simple_q,
+    "apexdqn": _apex_dqn,
+    "r2d2": _r2d2,
     "bc": _bc,
     "marwil": _marwil,
     "dt": _dt,
@@ -65,9 +96,6 @@ _REGISTRY = {
 
 # the rest of the JAX package's registry, by the slice that ports it
 _SLICES = (
-    ("APPO and rl/podracer/", ("appo",)),
-    ("DQN, SimpleQ, Ape-X and R2D2",
-     ("dqn", "simpleq", "apexdqn", "r2d2")),
     ("SAC and DDPG/TD3", ("sac", "ddpg", "td3")),
     ("PG, A2C and A3C", ("pg", "a2c", "a3c")),
     ("CQL and CRR", ("cql", "crr")),

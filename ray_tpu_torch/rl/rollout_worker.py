@@ -22,8 +22,7 @@ from ray_tpu_torch.rl.policy import (DDPGPolicy, JaxPolicy, QPolicy,
                                      R2D2Policy, SACPolicy)
 from ray_tpu_torch.rl.sample_batch import SampleBatch, compute_gae
 
-_LATER = {"q": QPolicy, "r2d2": R2D2Policy, "ddpg": DDPGPolicy,
-          "sac": SACPolicy}
+_LATER = {"ddpg": DDPGPolicy, "sac": SACPolicy}
 
 
 class RolloutWorker:
@@ -42,10 +41,15 @@ class RolloutWorker:
         # batches of num_envs rows: one thread beats torch's pool of one
         # per core, and the actor leases one CPU
         torch.set_num_threads(1)
-        self.policy = JaxPolicy(self.vec.observation_space,
-                                self.vec.action_space, hidden=hidden,
-                                seed=seed, device="cpu",
-                                **(policy_kwargs or {}))
+        spaces = (self.vec.observation_space, self.vec.action_space)
+        kwargs = dict(hidden=hidden, seed=seed, device="cpu",
+                      **(policy_kwargs or {}))
+        if policy == "q":
+            self.policy = QPolicy(*spaces, **kwargs)
+        elif policy == "r2d2":
+            self.policy = R2D2Policy(*spaces, num_envs=num_envs, **kwargs)
+        else:
+            self.policy = JaxPolicy(*spaces, **kwargs)
         self.fragment = rollout_fragment_length
         self.gamma, self.lam = gamma, lam
         self._obs = self.vec.reset()
@@ -119,7 +123,6 @@ class RolloutWorker:
     def sample_time_major(self) -> Dict[str, np.ndarray]:
         """[T, N]-shaped fragment without GAE — IMPALA's V-trace does its
         own off-policy correction on the learner (cf. rllib vtrace)."""
-        n_envs = self.vec.num_envs
         cols: Dict[str, List[np.ndarray]] = {
             SB.OBS: [], SB.ACTIONS: [], SB.REWARDS: [], SB.TERMINATEDS: [],
             SB.ACTION_LOGP: []}
@@ -131,19 +134,94 @@ class RolloutWorker:
             cols[SB.REWARDS].append(rewards)
             cols[SB.TERMINATEDS].append(np.logical_or(terms, truncs))
             cols[SB.ACTION_LOGP].append(logp)
-            self._ep_rewards += rewards
-            self._ep_lens += 1
-            for i in range(n_envs):
-                if terms[i] or truncs[i]:
-                    self._completed.append(
-                        {"episode_reward": float(self._ep_rewards[i]),
-                         "episode_len": int(self._ep_lens[i])})
-                    self._ep_rewards[i] = 0.0
-                    self._ep_lens[i] = 0
+            self._end_episodes(rewards, terms, truncs)
             self._obs = next_obs
         out = {k: np.stack(v) for k, v in cols.items()}
         out["bootstrap_obs"] = self._obs.copy()
         return out
+
+    def set_epsilon(self, epsilon: float) -> None:
+        """Exploration schedule hook (the Q policies; a no-op otherwise)."""
+        if hasattr(self.policy, "set_epsilon"):
+            self.policy.set_epsilon(epsilon)
+
+    def _end_episodes(self, rewards, terms, truncs) -> None:
+        """Account one env step in the episode metrics."""
+        self._ep_rewards += rewards
+        self._ep_lens += 1
+        for i in range(self.vec.num_envs):
+            if terms[i] or truncs[i]:
+                self._completed.append(
+                    {"episode_reward": float(self._ep_rewards[i]),
+                     "episode_len": int(self._ep_lens[i])})
+                self._ep_rewards[i] = 0.0
+                self._ep_lens[i] = 0
+
+    def sample_transitions(self) -> SampleBatch:
+        """(obs, action, reward, next_obs, terminated) rows for replay-based
+        algorithms — no GAE, truncations bootstrap (terminated=False)."""
+        cols: Dict[str, List[np.ndarray]] = {
+            SB.OBS: [], SB.ACTIONS: [], SB.REWARDS: [], SB.NEXT_OBS: [],
+            SB.TERMINATEDS: []}
+        for _ in range(self.fragment):
+            actions, _, _ = self.policy.compute_actions(self._obs)
+            next_obs, rewards, terms, truncs, infos = self.vec.step(actions)
+            # auto-reset replaced ended envs' obs with the NEXT episode's
+            # start — TD targets must bootstrap from the real final obs
+            # (truncated rows especially: terminated=False there)
+            row_next = next_obs.copy()
+            for i, info in enumerate(infos):
+                if "terminal_observation" in info:
+                    row_next[i] = info["terminal_observation"]
+            cols[SB.OBS].append(self._obs)
+            cols[SB.ACTIONS].append(actions)
+            cols[SB.REWARDS].append(rewards)
+            cols[SB.NEXT_OBS].append(row_next)
+            cols[SB.TERMINATEDS].append(terms)
+            self._end_episodes(rewards, terms, truncs)
+            self._obs = next_obs
+        # flatten [T, N, ...] -> [T*N, ...]
+        out = {k: np.concatenate(v) if np.asarray(v[0]).ndim > 1
+               else np.stack(v).reshape(-1) for k, v in cols.items()}
+        return SampleBatch(out)
+
+    def sample_sequences(self) -> SampleBatch:
+        """Fixed-length recurrent sequences for R2D2: one sequence of
+        ``rollout_fragment_length`` timesteps per env, the LSTM carry
+        zeroed at sequence start; steps after the first episode end are
+        masked invalid (``seq_valid`` 0: the next episode needs a fresh
+        zero carry, which the learner can only supply at sequence
+        starts).  Rows are [num_envs, L, ...]."""
+        if not hasattr(self.policy, "reset_carry"):
+            raise ValueError("sample_sequences needs the r2d2 policy")
+        n_envs = self.vec.num_envs
+        # a fresh zero state at every sequence start, so that the learner
+        # can replay from zeros (R2D2's zero-start-state strategy)
+        self.policy.reset_carry(np.ones(n_envs))
+        cols: Dict[str, List[np.ndarray]] = {
+            k: [] for k in (SB.OBS, SB.ACTIONS, SB.REWARDS, SB.TERMINATEDS,
+                            SB.TRUNCATEDS)}
+        valid_rows = []
+        alive = np.ones(n_envs, np.float32)
+        for _ in range(self.fragment):
+            actions, _, _ = self.policy.compute_actions(self._obs)
+            next_obs, rewards, terms, truncs, _ = self.vec.step(actions)
+            cols[SB.OBS].append(self._obs)
+            cols[SB.ACTIONS].append(actions)
+            cols[SB.REWARDS].append(rewards)
+            cols[SB.TERMINATEDS].append(terms)
+            cols[SB.TRUNCATEDS].append(truncs)
+            valid_rows.append(alive.copy())
+            # episode metrics track every step, including those of the
+            # auto-reset episode that the sequence no longer trains on
+            self._end_episodes(rewards, terms, truncs)
+            done = np.asarray(terms) | np.asarray(truncs)
+            alive = alive * (1.0 - done.astype(np.float32))
+            self._obs = next_obs
+        # [T, N, ...] -> [N, T, ...]
+        out = {k: np.swapaxes(np.stack(v), 0, 1) for k, v in cols.items()}
+        out["seq_valid"] = np.swapaxes(np.stack(valid_rows), 0, 1)
+        return SampleBatch(out)
 
     def evaluate_rollout(self, weights, *, n_episodes: int = 1,
                          explore: bool = False,

@@ -36,3 +36,27 @@ def test_library_path_follows_sources_and_headers(src, edit):
         changed = {"a", "b"}
     after = {n: _build.library_path(n) for n in ("a", "b")}
     assert {n for n in after if after[n] != before[n]} == changed
+
+
+@pytest.mark.parametrize("name, dtypes", [("flash_attention", (0, 1)),
+                                          ("splash_attention", (0, 1)),
+                                          ("paged_attention", ())])
+def test_wrapper_head_dims_match_the_kernel_dispatch(name, dtypes):
+    """A wrapper's ``_HEAD_DIMS`` (the head_dims it lets through to the
+    launch) equal the ``hd == N`` cases of its kernel's launch dispatch,
+    read from the source: for flash and splash in fp32 (dtype 0) and in
+    bf16 (dtype 1) alike, and for the usage queries.  A head_dim the
+    wrapper takes that the dispatch lacks would end in a CUDA error on
+    the card instead of a ValueError here."""
+    import importlib
+    import re
+    module = importlib.import_module(
+        "ray_tpu_torch.ops." + ("splash" if name == "splash_attention"
+                                else name))
+    want = set(module._HEAD_DIMS)
+    text = (_build.SRC_DIR / f"{name}.cu").read_text()
+    assert {int(n) for n in re.findall(r"\bhd == (\d+)\)", text)} == want
+    for dtype in dtypes:
+        cases = re.findall(rf"dtype == {dtype} && hd == (\d+)\) return run<",
+                           text)
+        assert {int(n) for n in cases} == want, (name, dtype)

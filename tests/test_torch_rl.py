@@ -590,8 +590,9 @@ def test_registry_and_unported_paths():
     assert (algo.__name__, cfg.__name__) == ("Impala", "ImpalaConfig")
     for name in ("bc", "marwil", "dt"):
         get_algorithm_class(name)
-    for name, slice_ in (("APPO", "podracer"), ("dqn", "R2D2"),
-                         ("SAC", "DDPG"), ("a3c", "A2C"), ("crr", "CQL"),
+    for name in ("appo", "dqn", "simpleq", "apexdqn", "r2d2"):
+        get_algorithm_class(name)
+    for name, slice_ in (("SAC", "DDPG"), ("a3c", "A2C"), ("crr", "CQL"),
                          ("qmix", "MADDPG"), ("alpha_zero", "search")):
         with pytest.raises(NotImplementedError, match=slice_):
             get_algorithm_class(name)
@@ -599,8 +600,7 @@ def test_registry_and_unported_paths():
         get_algorithm_class("nope")
     with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         PPOConfig().resources(mesh_shape={"data": 2})
-    with pytest.raises(NotImplementedError, match="podracer"):
-        ImpalaConfig().podracer(enabled=True)
+    assert ImpalaConfig().podracer(enabled=True).use_podracer
 
 
 def test_ppo_on_the_port_runtime_with_save_and_restore():
