@@ -202,6 +202,22 @@ package.  Phases, one JSON line each:
               iterations and a checkpoint.  Rollout actors start no
               CUDA, no attention kernel launches, and no process is
               left after shutdown().
+     rl_continuous  the continuous-control, actor-critic and offline
+              families on the runtime, in a session of their own, at
+              their configs' widths (256 x 256): (a) SAC on Pendulum-v1
+              with tests/test_rl.py's settings for 44 calls, the best of
+              the last 8 episode_reward_mean 250 above the first, alpha
+              > 0; (b) DDPG and TD3 for 8 calls, TD3's actor, its Adam
+              state and target actor bit-equal across skipped steps;
+              (c) PG, A2C and A3C on CartPole-v1 (A3C: 3 calls of 8
+              fragments, each worker holding the weights pushed to it);
+              (d) CQL and CRR on a 10,000-step dataset for 3 calls,
+              cql_loss and mean_weight > 0, a save after call 1 restored
+              bit for bit.  Every first update (TD3's first two) equals
+              the same update on CPU copies of the state, the batch and
+              the recorded noise within 1e-5 and its card replay bit for
+              bit; update ms (median, p90), env steps/s, walls; no
+              attention kernel launches; no process left.
   7. splash_train  the same run with attention_impl "splash": its first
               step against one flash step from the same weights, then
               20 steps through K5 while the flash counters stay at 0.
@@ -286,6 +302,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+RUN_T0 = time.perf_counter()     # the run's start, for its wall
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -2973,12 +2990,14 @@ def _record_first(algo, rec: dict, name: str = "_sgd_step") -> None:
     setattr(algo, name, step)
 
 
-def _step_replay(algo, rec: dict, device, make_step) -> dict:
+def _step_replay(algo, rec: dict, device, make_step,
+                 make_tx=None) -> dict:
     """The recorded first step again on copies of the network (and the
     target network), the optimizer state and the batch on ``device``,
     through ``make_step(model, target, tx)`` with the learner's optimizer
-    (``make_ppo_optimizer``: clip, then Adam): its 0-d aux, its gradients
-    and the weights it gives, as host numpy."""
+    (``make_tx(config)``; default ``make_ppo_optimizer``: clip, then
+    Adam): its 0-d aux, its gradients and the weights it gives, as host
+    numpy."""
     import copy
 
     from ray_tpu_torch.rl.algorithm import to_device
@@ -2990,7 +3009,7 @@ def _step_replay(algo, rec: dict, device, make_step) -> dict:
     if "target" in rec:
         target = copy.deepcopy(algo.target_model).to(device)
         load_weights(target, rec["target"])
-    tx, grads = make_ppo_optimizer(algo.config), {}
+    tx, grads = (make_tx or make_ppo_optimizer)(algo.config), {}
     update = tx.update
 
     def capture(params, g, state):
@@ -3005,7 +3024,7 @@ def _step_replay(algo, rec: dict, device, make_step) -> dict:
 
 
 def _step_check(algo, rec: dict, dev, make_step,
-                loss_key: str = "total_loss") -> dict:
+                loss_key: str = "total_loss", make_tx=None) -> dict:
     """The learner's real first step, and a replay of it on the card
     that also yields the gradients, against CPU copies: the loss
     relative to the CPU's; each gradient tensor's largest error relative
@@ -3018,8 +3037,8 @@ def _step_check(algo, rec: dict, dev, make_step,
     reported too (some sit near 0 at the first step, where relative
     errors say nothing)."""
     import numpy as np
-    card = _step_replay(algo, rec, dev, make_step)
-    cpu = _step_replay(algo, rec, "cpu", make_step)
+    card = _step_replay(algo, rec, dev, make_step, make_tx)
+    cpu = _step_replay(algo, rec, "cpu", make_step, make_tx)
     cpu_loss = cpu["aux"][loss_key]
     norm = sum(float(np.sum(w ** 2)) for w in cpu["after"].values())
 
@@ -3443,10 +3462,10 @@ _ROLLOUT_KEYS = ("num_rollout_workers", "num_envs_per_worker",
                  "rollout_fragment_length")
 
 
-def _rl_config(cls, settings: dict):
-    """``cls()`` on CartPole-v1 with ``settings`` split into rollout and
+def _rl_config(cls, settings: dict, env: str = "CartPole-v1"):
+    """``cls()`` on ``env`` with ``settings`` split into rollout and
     training settings, seed SEED."""
-    return (cls().environment("CartPole-v1")
+    return (cls().environment(env)
             .rollouts(**{k: v for k, v in settings.items()
                          if k in _ROLLOUT_KEYS})
             .training(**{k: v for k, v in settings.items()
@@ -4002,6 +4021,523 @@ RR_PARTS = ("dqn", "apex", "r2d2", "appo", "podracer_impala",
 def rl_replay_launches(rr: dict, kind: str) -> dict:
     """A kernel's launches on the rl_replay phase's paths."""
     return {f"rl_{part}": rr[part]["launches"][kind] for part in RR_PARTS}
+
+
+# ---------------------------------------------------------- rl_continuous
+# (a) SAC with tests/test_rl.py:268-279's settings at SACConfig's widths
+# (256 x 256; the test narrows them to 64 x 64) and that test's gate
+# (:286): the best of the last 8 iterations' episode_reward_mean above
+# the first by RC_SAC_GAIN.  (b) DDPG and TD3 at DDPGConfig's widths, 2
+# actors x 1 env, fragment 64, RC_DDPG_ITERS calls.  (c) PG, A2C and A3C
+# at their configs' defaults with 2 actors x 2 envs on CartPole-v1, A3C
+# for RC_A3C_ITERS calls of 8 fragments.  (d) CQL and CRR at their
+# defaults (batch 256, 64 updates a call, 4 sampled actions) on an
+# RC_OFFLINE_STEPS-step Pendulum-v1 dataset of collect_dataset.  Every
+# first update is replayed on the card and on the CPU from copies of the
+# state, the batch and the recorded noise, and held at RL_STEP_RTOL.
+RC_SAC = dict(num_rollout_workers=2, num_envs_per_worker=1,
+              rollout_fragment_length=128, lr=1e-3, train_batch_size=128,
+              buffer_size=50_000, learning_starts=500,
+              n_updates_per_iter=128)
+RC_SAC_ITERS = 44
+RC_SAC_GAIN = 250.0
+RC_DDPG = dict(num_rollout_workers=2, num_envs_per_worker=1,
+               rollout_fragment_length=64, learning_starts=256,
+               train_batch_size=256, n_updates_per_iter=32)
+RC_DDPG_ITERS = 8
+RC_AC = dict(num_rollout_workers=2, num_envs_per_worker=2)
+RC_AC_ITERS = 5
+RC_A3C_ITERS = 3
+RC_OFFLINE_STEPS = 10_000
+RC_OFFLINE_SEED = 2
+RC_OFFLINE_CALLS = 3
+RC_PARTS = ("sac", "ddpg", "td3", "pg", "a2c", "a3c", "cql", "crr")
+
+
+def _timed_sync(obj, name: str, bucket: list) -> None:
+    """Wrap ``obj.name`` to append each call's wall seconds, up to the
+    end of its device work (a synchronize after each call), to
+    ``bucket``."""
+    import torch
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            bucket.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapper)
+
+
+def _ms_stats(seconds: list) -> dict:
+    """Median and 90th percentile of a list of seconds, in ms."""
+    ms = sorted(x * 1e3 for x in seconds)
+    return {"n": len(ms), "median": statistics.median(ms),
+            "p90": ms[min(len(ms) - 1, int(0.9 * len(ms)))]}
+
+
+def _state_weights(state: dict) -> dict:
+    """The modules and parameters of a learner's ``state`` as host numpy
+    (module name -> state-dict name -> array; a parameter as one array
+    under its own name)."""
+    import torch
+    from ray_tpu_torch.rl.policy import module_weights
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, torch.nn.Module):
+            out[k] = module_weights(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = {k: v.detach().cpu().numpy().copy()}
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    """Two snapshots (nested dicts of arrays and numbers) equal bit for
+    bit, key for key."""
+    import numpy as np
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(
+            _same_tree(a[k], v) for k, v in b.items())
+    if isinstance(b, np.ndarray):
+        return isinstance(a, np.ndarray) and a.dtype == b.dtype and \
+            np.array_equal(a, b)
+    return a == b
+
+
+def _state_on_card(algo, dev, name: str) -> None:
+    import torch
+    check(all(t.device.type == dev.type for v in algo.state.values()
+              if isinstance(v, (torch.nn.Module, torch.Tensor))
+              for t in (v.parameters() if isinstance(v, torch.nn.Module)
+                        else [v])),
+          f"the {name} learner is not on {dev}")
+
+
+def _state_to(state: dict, device) -> dict:
+    """A copy of a learner's ``state`` dict on ``device``: modules
+    deep-copied, parameters and optimizer states copied."""
+    import copy
+
+    import torch
+    from ray_tpu_torch.rl.algorithm import to_device
+
+    def one(v):
+        if isinstance(v, torch.nn.Module):
+            return copy.deepcopy(v).to(device)
+        if isinstance(v, torch.nn.Parameter):
+            return torch.nn.Parameter(v.detach().to(device, copy=True))
+        return to_device(v, device)
+    return {k: one(v) for k, v in state.items()}
+
+
+def _record_updates(algo, recs: list, n: int = 1) -> None:
+    """Make ``algo._update`` (``update(state, batch, noise, *rest) ->
+    aux``) keep CPU copies of its first ``n`` calls' state, batch,
+    noise and other arguments, and of the weights and 0-d aux they gave
+    (the real updates run unchanged)."""
+    from ray_tpu_torch.rl.algorithm import to_device
+    real = algo._update
+
+    def update(state, batch, noise, *rest):
+        if len(recs) >= n:
+            return real(state, batch, noise, *rest)
+        rec = {"state": _state_to(state, "cpu"),
+               "batch": to_device(batch, "cpu"),
+               "noise": to_device(noise, "cpu"), "rest": rest}
+        aux = real(state, batch, noise, *rest)
+        rec.update(after=_state_weights(state),
+                   aux={k: float(v) for k, v in aux.items()})
+        recs.append(rec)
+        return aux
+    algo._update = update
+
+
+def _update_replay(rec: dict, device, make_update) -> dict:
+    """A recorded update again on copies of its state, batch and noise on
+    ``device`` through ``make_update(device)``: its aux and the weights
+    it gives."""
+    from ray_tpu_torch.rl.algorithm import to_device
+    state = _state_to(rec["state"], device)
+    aux = make_update(device)(state, to_device(rec["batch"], device),
+                              to_device(rec["noise"], device),
+                              *rec["rest"])
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "after": _state_weights(state)}
+
+
+def _update_check(rec: dict, dev, make_update,
+                  loss_key: str = "critic_loss") -> dict:
+    """A learner's real update, and a replay of it on the card, against
+    the same update on CPU copies of its state, batch and noise: the
+    loss relative to the CPU's, and each network (the targets and the
+    log temperature too) after the update as one vector, ||card - cpu||
+    / ||cpu|| (``_step_check`` says why not per element); whether the
+    real update equals its card replay bit for bit.  The other aux
+    values are reported as absolute errors (some sit near 0 at the first
+    update)."""
+    import numpy as np
+    card = _update_replay(rec, dev, make_update)
+    cpu = _update_replay(rec, "cpu", make_update)
+
+    def rel_errs(after):
+        out = {}
+        for net, want in cpu["after"].items():
+            norm = sum(float(np.sum(w.astype(np.float64) ** 2))
+                       for w in want.values())
+            diff = sum(float(np.sum((after[net][n].astype(np.float64)
+                                     - w) ** 2)) for n, w in want.items())
+            out[net] = (diff / max(norm, 1e-30)) ** 0.5
+        return out
+
+    cpu_loss = cpu["aux"][loss_key]
+    out = {"rows": int(rec["batch"]["obs"].shape[0]),
+           "rest": list(rec["rest"]),
+           "card_loss": rec["aux"][loss_key],
+           "replay_card_loss": card["aux"][loss_key], "cpu_loss": cpu_loss,
+           "real_loss_rel_err": abs(rec["aux"][loss_key] - cpu_loss)
+           / abs(cpu_loss),
+           "loss_rel_err": abs(card["aux"][loss_key] - cpu_loss)
+           / abs(cpu_loss),
+           "aux_abs_err": {k: abs(card["aux"][k] - v)
+                           for k, v in cpu["aux"].items()},
+           "real_param_rel_err": rel_errs(rec["after"]),
+           "param_rel_err": rel_errs(card["after"]),
+           "real_equals_card_replay": all(
+               np.array_equal(rec["after"][net][n], w)
+               for net, ws in card["after"].items() for n, w in ws.items())}
+    out["max_rel_err"] = max(
+        [out["real_loss_rel_err"], out["loss_rel_err"]]
+        + list(out["real_param_rel_err"].values())
+        + list(out["param_rel_err"].values()))
+    return out
+
+
+def _gate_step(step: dict, name: str) -> None:
+    check(step["max_rel_err"] <= RL_STEP_RTOL,
+          f"{name}'s first update on the card disagrees with the CPU: "
+          f"{step}")
+    check(step["real_equals_card_replay"],
+          f"{name}'s real update differs from its card replay: {step}")
+
+
+def _run_iters(algo, iters: int) -> tuple:
+    """``iters`` train() calls: (results' rewards and infos, wall s)."""
+    rows, t0 = [], time.perf_counter()
+    for _ in range(iters):
+        r = algo.train()
+        rows.append({"timesteps_total": r["timesteps_total"],
+                     "episode_reward_mean": r["episode_reward_mean"],
+                     "iter_ms": r["time_this_iter_s"] * 1e3,
+                     "info": r["info"]})
+    return rows, time.perf_counter() - t0
+
+
+def _sac_part(dev) -> dict:
+    import torch
+    from ray_tpu_torch.rl import SACConfig
+    from ray_tpu_torch.rl.sac import Rescale, make_sac_update
+    counters = _zeroed_counters()
+    t_build = time.perf_counter()
+    algo = _rl_config(SACConfig, RC_SAC, "Pendulum-v1").build()
+    out = {"build_s": time.perf_counter() - t_build}
+    try:
+        _state_on_card(algo, dev, "SAC")
+        cfg = algo.config
+        check(tuple(cfg.hidden) == (256, 256),
+              f"SAC's config widths moved: {cfg.hidden}")
+        recs, upd_s = [], []
+        _timed_sync(algo, "_update", upd_s)
+        _record_updates(algo, recs)
+        iters, wall = _run_iters(algo, RC_SAC_ITERS)
+        rewards = [i["episode_reward_mean"] for i in iters
+                   if not math.isnan(i["episode_reward_mean"])]
+        info = iters[-1]["info"]
+        out.update(
+            wall_s=wall, train_iters=len(iters), rewards=rewards,
+            timesteps_total=iters[-1]["timesteps_total"],
+            env_steps_per_s=iters[-1]["timesteps_total"] / wall,
+            updates=len(upd_s), update_ms=_ms_stats(upd_s),
+            update_s_total=sum(upd_s), critic_loss=info["critic_loss"],
+            alpha=info["alpha"], entropy=info["entropy"],
+            iter_ms=[i["iter_ms"] for i in iters])
+        check(rewards and max(rewards[-8:]) > rewards[0] + RC_SAC_GAIN,
+              f"SAC's best of the last 8 iterations is not {RC_SAC_GAIN} "
+              f"above its first: {rewards}")
+        check(math.isfinite(info["critic_loss"]) and info["alpha"] > 0,
+              f"SAC's critic loss or alpha is off: {info}")
+        out["launches"] = _no_launches(counters, "SAC")
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the step gate needs fp32")
+        out["first_step"] = step = _update_check(
+            recs[0], dev, lambda d: make_sac_update(
+                cfg, algo.txs, Rescale(algo.rescale.low, algo.rescale.high,
+                                       d), algo.target_entropy))
+        _gate_step(step, "SAC")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _ddpg_part(dev, td3: bool) -> dict:
+    import torch
+    from ray_tpu_torch.rl import DDPGConfig, TD3Config
+    from ray_tpu_torch.rl.ddpg import make_ddpg_update
+    from ray_tpu_torch.rl.sac import Rescale
+    name = "TD3" if td3 else "DDPG"
+    counters = _zeroed_counters()
+    algo = _rl_config(TD3Config if td3 else DDPGConfig, RC_DDPG,
+                      "Pendulum-v1").build()
+    try:
+        _state_on_card(algo, dev, name)
+        cfg = algo.config
+        recs, upd_s, held = [], [], []
+        _timed_sync(algo, "_update", upd_s)
+        _record_updates(algo, recs, n=2 if td3 else 1)
+        real = algo._update
+
+        def actor_side(state):
+            opt = state["actor_opt"]
+            return (opt["count"], [
+                _flat(state["actor"]).clone(),
+                _flat(state["target_actor"]).clone(),
+                torch.cat([t.reshape(-1) for m in ("mu", "nu")
+                           for t in opt[m].values()])])
+
+        def update(state, batch, noise, do_actor):
+            # a step that skips the actor leaves the actor, its Adam
+            # state and count, and the target actor as they were
+            if do_actor:
+                return real(state, batch, noise, do_actor)
+            count, before = actor_side(state)
+            aux = real(state, batch, noise, do_actor)
+            count_after, after = actor_side(state)
+            held.append(count_after == count and all(
+                torch.equal(a, b) for a, b in zip(before, after)))
+            return aux
+        algo._update = update
+        iters, wall = _run_iters(algo, RC_DDPG_ITERS)
+        losses = [(i["info"]["critic_loss"], i["info"]["actor_loss"])
+                  for i in iters if "critic_loss" in i["info"]]
+        out = {"wall_s": wall, "train_iters": len(iters),
+               "timesteps_total": iters[-1]["timesteps_total"],
+               "env_steps_per_s": iters[-1]["timesteps_total"] / wall,
+               "updates": len(upd_s), "update_ms": _ms_stats(upd_s),
+               "losses": losses,
+               "rewards": [i["episode_reward_mean"] for i in iters]}
+        check(losses and all(math.isfinite(x) for pair in losses
+                             for x in pair),
+              f"{name}'s losses are off: {losses}")
+        out["launches"] = _no_launches(counters, name)
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the step gate needs fp32")
+
+        def make(d):
+            return make_ddpg_update(cfg, algo.txs, Rescale(
+                algo.rescale.low, algo.rescale.high, d))
+        out["first_steps"] = steps = [_update_check(r, dev, make)
+                                      for r in recs]
+        for step in steps:
+            _gate_step(step, name)
+        if td3:
+            check([s["rest"] for s in steps] == [[False], [True]],
+                  f"TD3's first two updates are not critic-only, then "
+                  f"actor: {[s['rest'] for s in steps]}")
+            out["skipped_actor_steps"] = len(held)
+            check(held and all(held),
+                  f"TD3's actor moved on a skipped step "
+                  f"({held.count(False)} of {len(held)})")
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _ac_part(dev, kind: str) -> dict:
+    """PG, A2C or A3C on CartPole-v1 at RC_AC."""
+    import numpy as np
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import A2CConfig, A3CConfig, PGConfig
+    from ray_tpu_torch.rl import models as M
+    from ray_tpu_torch.rl.a2c import make_a2c_optimizer
+    from ray_tpu_torch.rl.pg import make_pg_sgd_step
+    from ray_tpu_torch.rl.policy import module_weights
+    from ray_tpu_torch.rl.ppo import make_ppo_optimizer
+    cfg_cls = {"pg": PGConfig, "a2c": A2CConfig, "a3c": A3CConfig}[kind]
+    counters = _zeroed_counters()
+    algo = _rl_config(cfg_cls, RC_AC).build()
+    try:
+        _on_card(algo, dev, kind)
+        cfg = algo.config
+        rec, sgd_s, pushed = {}, [], {}
+        _timed_sync(algo, "_sgd_step", sgd_s)
+        _record_first(algo, rec)
+        if kind == "a3c":
+            # what each worker was last sent: the learner's weights when
+            # its next fragment is requested (the push, or the initial
+            # sync, precedes the request)
+            submit = algo._submit
+
+            def _submit(idx):
+                pushed[idx] = module_weights(algo.model)
+                submit(idx)
+            algo._submit = _submit
+        iters, wall = _run_iters(algo, RC_A3C_ITERS if kind == "a3c"
+                                 else RC_AC_ITERS)
+        infos = [i["info"] for i in iters]
+        out = {"wall_s": wall, "train_iters": len(iters),
+               "timesteps_total": iters[-1]["timesteps_total"],
+               "env_steps_per_s": iters[-1]["timesteps_total"] / wall,
+               "sgd_steps": len(sgd_s), "sgd_ms": _ms_stats(sgd_s),
+               "total_losses": [i["total_loss"] for i in infos],
+               "rewards": [i["episode_reward_mean"] for i in iters]}
+        check(all(math.isfinite(x) for x in out["total_losses"]),
+              f"{kind}'s losses are off: {out['total_losses']}")
+        if kind == "a3c":
+            out["batches_processed"] = [i["batches_processed"]
+                                        for i in infos]
+            check(all(n >= 1 for n in out["batches_processed"]),
+                  f"A3C processed no fragment in an iteration: "
+                  f"{out['batches_processed']}")
+            held = rt.get([w.get_weights.remote()
+                           for w in algo.workers.workers])
+            out["workers_adopted"] = adopted = [
+                all(np.array_equal(h[n], w) for n, w in pushed[i].items())
+                for i, h in enumerate(held)]
+            check(all(adopted), f"an A3C worker does not hold the weights "
+                                f"pushed to it: {adopted}")
+        out["launches"] = _no_launches(counters, kind)
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: the step gate needs fp32")
+        out["first_step"] = step = _step_check(
+            algo, rec, dev, lambda model, _, tx: make_pg_sgd_step(
+                model, M.categorical_logp, M.categorical_entropy, tx, cfg,
+                normalize_advantages=kind == "pg"),
+            make_tx=make_ppo_optimizer if kind == "pg"
+            else make_a2c_optimizer)
+        _gate_step(step, kind)
+        out["rollout_actors"] = _check_rollout_hosts(algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def _offline_part(dev, kind: str, data: str) -> dict:
+    """CQL or CRR over ``data`` for RC_OFFLINE_CALLS train() calls, saved
+    after the first and restored after the last."""
+    import numpy as np
+    import torch
+    from ray_tpu_torch.rl import CQLConfig, CRRConfig
+    from ray_tpu_torch.rl.algorithm import full_training_state
+    from ray_tpu_torch.rl.cql import make_cql_update
+    from ray_tpu_torch.rl.crr import make_crr_update
+    from ray_tpu_torch.rl.sac import Rescale
+    cfg_cls, make_update, key = {
+        "cql": (CQLConfig, make_cql_update, "cql_loss"),
+        "crr": (CRRConfig, make_crr_update, "mean_weight")}[kind]
+    counters = _zeroed_counters()
+    t_build = time.perf_counter()
+    algo = (cfg_cls().environment("Pendulum-v1")
+            .offline_data(input_path=data).debugging(seed=SEED).build())
+    out = {"build_s": time.perf_counter() - t_build,
+           "dataset_rows": algo.dataset.count}
+    _state_on_card(algo, dev, kind)
+    cfg = algo.config
+    recs, upd_s, infos, saved, ckpt = [], [], [], None, None
+    _timed_sync(algo, "_update", upd_s)
+    _record_updates(algo, recs)
+    t0 = time.perf_counter()
+    for call in range(RC_OFFLINE_CALLS):
+        infos.append(algo.train()["info"])
+        if call == 0:
+            ckpt = algo.save()
+            saved = full_training_state(algo)
+    wall = time.perf_counter() - t0
+    algo.restore(ckpt)
+    back = full_training_state(algo)
+    out.update(wall_s=wall, updates=len(upd_s),
+               update_ms=_ms_stats(upd_s),
+               rows_per_s=algo._timesteps_total / wall,
+               infos=infos, key=[i[key] for i in infos])
+    check(all(i[key] > 0 and all(math.isfinite(v) for v in i.values())
+              for i in infos),
+          f"{kind}'s {key} is not positive or a loss is off: {infos}")
+    out["restore_bit_equal"] = same = _same_tree(back, saved)
+    check(same and algo.iteration == 1,
+          f"{kind}'s restore does not give back the saved state")
+    out["launches"] = _no_launches(counters, kind)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the step gate needs fp32")
+    out["first_step"] = step = _update_check(
+        recs[0], dev, lambda d: make_update(
+            cfg, algo.txs, Rescale(algo.rescale.low, algo.rescale.high, d)))
+    _gate_step(step, kind)
+    return out
+
+
+def rl_continuous_phase(dev) -> dict:
+    """The continuous-control, actor-critic and offline families on the
+    port's runtime, in a session of its own, as the module docstring
+    says: (a) SAC, (b) DDPG and TD3, (c) PG, A2C and A3C, (d) CQL and
+    CRR."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rl import collect_dataset
+
+    torch.cuda.empty_cache()
+    before = _runtime_processes()
+    check(not before, f"runtime processes left from before: {before}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_rl_continuous_")
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8)
+    node = ray_tpu_torch.api._node
+    out = {"init_s": time.perf_counter() - t0,
+           "session_dir": node.session_dir}
+    try:
+        parts = (("sac", _sac_part),
+                 ("ddpg", lambda d: _ddpg_part(d, td3=False)),
+                 ("td3", lambda d: _ddpg_part(d, td3=True)),
+                 ("pg", lambda d: _ac_part(d, "pg")),
+                 ("a2c", lambda d: _ac_part(d, "a2c")),
+                 ("a3c", lambda d: _ac_part(d, "a3c")))
+        for part, run in parts:
+            t1 = time.perf_counter()
+            out[part] = run(dev)
+            out[part]["part_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        data = collect_dataset("Pendulum-v1", work + "/pendulum",
+                               n_steps=RC_OFFLINE_STEPS,
+                               seed=RC_OFFLINE_SEED)
+        out["collect_s"] = time.perf_counter() - t1
+        for part in ("cql", "crr"):
+            t1 = time.perf_counter()
+            out[part] = _offline_part(dev, part, data)
+            out[part]["part_s"] = time.perf_counter() - t1
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        deadline = time.monotonic() + 30
+        left = _runtime_processes(node.session_dir)
+        while left and time.monotonic() < deadline:
+            time.sleep(0.5)
+            left = _runtime_processes(node.session_dir)
+    out["left_after_shutdown"] = left
+    out["phase_s"] = time.perf_counter() - t0
+    out["run_s_so_far"] = time.perf_counter() - RUN_T0
+    check(not left, f"processes left after shutdown: {left}")
+    return out
+
+
+def rl_continuous_launches(rc: dict, kind: str) -> dict:
+    """A kernel's launches on the rl_continuous phase's paths."""
+    return {f"rl_{part}": rc[part]["launches"][kind] for part in RC_PARTS}
 
 
 def attn_bound(kind: str, q, k, causal: bool) -> dict:
@@ -5395,6 +5931,10 @@ def main() -> int:
     emit({"phase": "rl_replay", **rl_replay})
     torch.cuda.empty_cache()
 
+    rl_continuous = rl_continuous_phase(dev)
+    emit({"phase": "rl_continuous", **rl_continuous})
+    torch.cuda.empty_cache()
+
     splash_train = train_phase(dev, impl="splash", ref_impl="flash")
     emit({"phase": "splash_train", **splash_train})
     torch.cuda.empty_cache()
@@ -5458,7 +5998,8 @@ def main() -> int:
             **air_launches(air, "paged_attention"),
             **air_batch_launches(air_batch, "paged_attention"),
             **rl_launches(rl, "paged_attention"),
-            **rl_replay_launches(rl_replay, "paged_attention")},
+            **rl_replay_launches(rl_replay, "paged_attention"),
+            **rl_continuous_launches(rl_continuous, "paged_attention")},
         **{label: {"ms": kern[label]["kernel_ms"],
                    "plain_ms": kern[label]["ref_ms"],
                    "bound_ms": kern[label]["bound_ms"],
@@ -5495,7 +6036,8 @@ def main() -> int:
                 **air_launches(air, kind),
                 **air_batch_launches(air_batch, kind),
                 **rl_launches(rl, kind),
-                **rl_replay_launches(rl_replay, kind)}
+                **rl_replay_launches(rl_replay, kind),
+                **rl_continuous_launches(rl_continuous, kind)}
             for label in PATH_SHAPES:
                 at = phase.get(f"{label}_shape")
                 if at is not None:
@@ -5529,11 +6071,13 @@ def main() -> int:
          "runtime": runtime, "serve": served, "flash": flash,
          "splash": splash, "train": train, "air": air,
          "air_batch": air_batch, "rl": rl, "rl_replay": rl_replay,
+         "rl_continuous": rl_continuous, "run_s": time.perf_counter() - RUN_T0,
          "splash_train": splash_train,
          "lean_train": lean, "gptj": gptj, "moe_slice": moe_slice,
          "moe_train": moe_train, "vision_train": vision,
          "encoder_train": encoder, "loss": loss, **kernels},
         indent=1))
+    emit({"phase": "run", "run_s": time.perf_counter() - RUN_T0})
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,12 @@ The learner keeps its network as an ``nn.Module`` (``self.model``), a
 target network where the algorithm has one as a separate module
 (``self.target_model``, a copy: the optimizer updates ``self.model`` in
 place, so an alias would track it), and its optimizer state as a dict
-of tensors (``self.opt_state``); ``full_training_state`` snapshots them
-as host numpy arrays, and ``save`` / ``restore`` carry them through the
+of tensors (``self.opt_state``).  A learner of several networks (SAC,
+DDPG/TD3, CQL, CRR) keeps them all in one dict ``self.state`` under the
+JAX package's names instead: modules (``actor``, ``critic``, the
+targets), parameters (``log_alpha``) and optimizer states
+(``actor_opt``, ...).  ``full_training_state`` snapshots either form as
+host numpy arrays, and ``save`` / ``restore`` carry them through the
 port's ``air/checkpoint.py``.
 """
 from __future__ import annotations
@@ -36,8 +40,9 @@ from ray_tpu_torch.air.config import MULTI_DEVICE
 from ray_tpu_torch.rl.policy import load_weights, module_weights
 from ray_tpu_torch.rl.worker_set import WorkerSet
 
-# schedule counters a checkpoint carries (the JAX package's)
-_COUNTER_ATTRS = ("_steps_since_target_sync",)
+# schedule counters a checkpoint carries (the JAX package's; TD3's
+# delayed-actor count too)
+_COUNTER_ATTRS = ("_steps_since_target_sync", "_updates")
 
 
 def to_host(tree):
@@ -70,12 +75,19 @@ def to_device(tree, device):
 def full_training_state(algo) -> dict:
     """Host-side snapshot of a learner's complete training state — its
     network's parameters, its target network's where it has one, its
-    optimizer's state (moments and count), as numpy arrays, and its
-    schedule counters — shared by the Algorithm subclasses, the offline
-    learners and the podracer learner, so the checkpoint format cannot
-    drift per algorithm."""
-    out = {"_format": "v2", "params": to_host(algo.params),
-           "opt_state": to_host(algo.opt_state)}
+    optimizer's state (moments and count), as numpy arrays, or each
+    entry of its ``state`` dict (a module as its state dict) under
+    ``"state"`` — and its schedule counters; shared by the Algorithm
+    subclasses, the offline learners and the podracer learner, so the
+    checkpoint format cannot drift per algorithm."""
+    out: dict = {"_format": "v2"}
+    if getattr(algo, "state", None) is not None:
+        out["state"] = {k: module_weights(v) if isinstance(
+            v, torch.nn.Module) else to_host(v)
+            for k, v in algo.state.items()}
+    else:
+        out.update(params=to_host(algo.params),
+                   opt_state=to_host(algo.opt_state))
     target = getattr(algo, "target_model", None)
     if target is not None:
         out["target_params"] = module_weights(target)
@@ -89,12 +101,24 @@ def full_training_state(algo) -> dict:
 def apply_full_training_state(algo, full: dict) -> None:
     """Put a ``full_training_state`` snapshot back on the learner's
     device; the parameters go into ``algo.model`` (and the target's into
-    ``algo.target_model``) in place, so the tensors the optimizer
-    updates stay the model's."""
-    load_weights(algo.model, full["params"])
+    ``algo.target_model``), or into the modules and parameters of
+    ``algo.state``, in place, so the tensors the optimizers update stay
+    the model's."""
+    if "state" in full:
+        for k, v in full["state"].items():
+            live = algo.state[k]
+            if isinstance(live, torch.nn.Module):
+                load_weights(live, v)
+            elif isinstance(live, torch.Tensor):
+                with torch.no_grad():
+                    live.copy_(torch.as_tensor(v))
+            else:
+                algo.state[k] = to_device(v, algo.device)
+    else:
+        load_weights(algo.model, full["params"])
+        algo.opt_state = to_device(full["opt_state"], algo.device)
     if "target_params" in full:
         load_weights(algo.target_model, full["target_params"])
-    algo.opt_state = to_device(full["opt_state"], algo.device)
     for c, v in (full.get("_counters") or {}).items():
         setattr(algo, c, v)
 

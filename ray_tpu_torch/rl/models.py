@@ -249,6 +249,12 @@ def squashed_sample_logp(gen: torch.Generator, mean, log_std):
     """A reparameterised tanh-Gaussian sample and its log-prob."""
     eps = torch.randn(mean.shape, generator=gen, device=mean.device,
                       dtype=mean.dtype)
+    return squash(mean, log_std, eps)
+
+
+def squash(mean, log_std, eps):
+    """``squashed_sample_logp`` at a given standard-normal ``eps``: the
+    learners draw their noise ahead of an update and pass it in."""
     pre = mean + log_std.exp() * eps
     logp = (-0.5 * eps.square() - log_std - 0.5 * _LOG_2PI).sum(-1)
     # tanh change of variables (numerically stable form)

@@ -31,7 +31,6 @@ Data plane (docs/rl_podracer.md):
 
 from __future__ import annotations
 
-import copy
 import queue
 import threading
 import time
@@ -191,11 +190,8 @@ class PodracerExecutor:
         over the slot)."""
         try:
             for item_ref in gen:
-                value = ray_tpu_torch.get(item_ref)
-                # the fragment's columns are views into the store, which
-                # the owner frees with the item's last ref: the ref rides
-                # along until the learner's channel holds a copy
-                if not self._put(("frag", slot, (value, item_ref))):
+                if not self._put(("frag", slot,
+                                  ray_tpu_torch.get(item_ref))):
                     return
             self._put(("end", slot, None))
         except Exception as e:  # stream died: actor lost
@@ -240,9 +236,8 @@ class PodracerExecutor:
 
     # --------------------------------------------------------- ingestion
     def _next_fragment(self, timeout: float = 120.0):
-        """(slot, fragment, meta, item ref) from the prefetch queue,
-        transparently folding loss markers into replacement kicks; the
-        ref keeps the fragment's store segment alive."""
+        """(slot, fragment, meta) from the prefetch queue, transparently
+        folding loss markers into replacement kicks."""
         deadline = time.monotonic() + timeout
         while True:
             remaining = deadline - time.monotonic()
@@ -256,8 +251,8 @@ class PodracerExecutor:
             except queue.Empty:
                 continue
             if kind == "frag":
-                (frag, meta), item_ref = value
-                return slot, frag, meta, item_ref
+                frag, meta = value
+                return slot, frag, meta
             if kind == "lost":
                 emit(RL_ACTOR_LOST,
                      f"rollout stream {slot} died: {value}",
@@ -339,7 +334,7 @@ class PodracerExecutor:
         for i in range(n):
             self._clock.begin()
             with self._clock.phase("dequeue_wait"):
-                slot, frag, meta, item_ref = self._next_fragment(timeout)
+                slot, frag, meta = self._next_fragment(timeout)
             if self._dag is None:
                 self._compile((frag, meta))
             if i == 0:
@@ -384,18 +379,16 @@ class PodracerExecutor:
         return out
 
     def get_weights(self):
-        # copies: a fetched value's arrays are views into the store, which
-        # the owner frees with the ref (ROADMAP.md, Queue 3)
-        return copy.deepcopy(ray_tpu_torch.get(
-            self.learner.get_weights.remote(), timeout=120.0))
+        return ray_tpu_torch.get(self.learner.get_weights.remote(),
+                                 timeout=120.0)
 
     def set_weights(self, weights) -> None:
         ray_tpu_torch.get(self.learner.set_weights.remote(weights),
                           timeout=120.0)
 
     def get_full_state(self):
-        return copy.deepcopy(ray_tpu_torch.get(
-            self.learner.get_state.remote(), timeout=120.0))
+        return ray_tpu_torch.get(self.learner.get_state.remote(),
+                                 timeout=120.0)
 
     def set_full_state(self, state) -> None:
         # the set_state publish bump makes every actor adopt the

@@ -10,11 +10,12 @@ dict of numpy arrays keyed by state-dict name (``get_weights`` /
 ``set_weights``), so no CUDA tensor ever reaches a CPU-only actor.
 
 ``QPolicy`` (DQN, SimpleQ, Ape-X) and ``R2D2Policy`` are epsilon-greedy
-over a ``QNetwork`` / ``RecurrentQNetwork``; their exploration draws come
-from the policy's ``torch.Generator``, so they agree with JAX's only in
-distribution, while the greedy actions and Q-values agree numerically.
-``DDPGPolicy`` and ``SACPolicy`` come with their algorithms (ROADMAP.md,
-Queue 1, item 4, RL); until then they raise ``NotImplementedError``.
+over a ``QNetwork`` / ``RecurrentQNetwork``; ``SACPolicy`` samples a
+tanh-squashed Gaussian and ``DDPGPolicy`` adds Gaussian noise to a
+deterministic actor, both rescaled to the Box bounds.  Their exploration
+draws come from the policy's ``torch.Generator``, so they agree with
+JAX's only in distribution, while the greedy actions and Q-values, and
+the deterministic continuous actions, agree numerically.
 """
 
 from __future__ import annotations
@@ -216,13 +217,87 @@ class R2D2Policy(QPolicy):
         return self._act(q[:, 0], explore)
 
 
-def _later(name: str, algos: str):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{name} comes with {algos} (ROADMAP.md, Queue 1, item 4, RL)")
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": f"Not ported yet: see {algos}."})
+class _ContinuousPolicy:
+    """Shared by the continuous-control rollout policies: a Box action
+    space, an actor network on ``device`` with its generator, and the
+    JAX package's rescale of [-1, 1] actions to the bounds."""
+
+    def __init__(self, name, observation_space, action_space, actor,
+                 hidden, seed, device):
+        if not isinstance(action_space, Box):
+            raise ValueError(f"{name} requires a continuous action space")
+        self.observation_space = observation_space
+        self.action_space = action_space
+        self.device = resolve_device(device)
+        obs_dim, act_dim, _ = action_dims(observation_space, action_space)
+        self.model = M.init_params(actor(obs_dim, act_dim, tuple(hidden),
+                                         device=self.device), seed)
+        self.model.eval()
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # actions are flattened to (B, prod(shape)); bounds follow suit
+        self._low = np.asarray(action_space.low, np.float32).reshape(-1)
+        self._high = np.asarray(action_space.high, np.float32).reshape(-1)
+
+    def _rescale(self, act: torch.Tensor) -> np.ndarray:
+        return self._low + (act.cpu().numpy() + 1.0) * 0.5 * \
+            (self._high - self._low)
+
+    def get_weights(self) -> Weights:
+        return module_weights(self.model)
+
+    def set_weights(self, weights: Weights) -> None:
+        load_weights(self.model, weights)
 
 
-DDPGPolicy = _later("DDPGPolicy", "DDPG/TD3")
-SACPolicy = _later("SACPolicy", "SAC")
+class DDPGPolicy(_ContinuousPolicy):
+    """Deterministic actor plus Gaussian exploration noise of scale
+    ``exploration_noise`` in tanh space, clipped to [-1, 1] (DDPG/TD3
+    rollouts); logp and the value column are zeros."""
+
+    def __init__(self, observation_space, action_space,
+                 hidden=(256, 256), seed: int = 0,
+                 exploration_noise: float = 0.1, *, device=None):
+        super().__init__("DDPGPolicy", observation_space, action_space,
+                         M.DeterministicActor, hidden, seed, device)
+        self.noise_scale = float(exploration_noise)
+
+    def set_noise_scale(self, scale: float) -> None:
+        self.noise_scale = float(scale)
+
+    @torch.inference_mode()
+    def compute_actions(self, obs: np.ndarray, *, explore: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        act = self.model(torch.as_tensor(np.asarray(obs, np.float32),
+                                         device=self.device))
+        if explore and self.noise_scale > 0.0:
+            noise = torch.randn(act.shape, generator=self._gen,
+                                device=self.device)
+            act = (act + self.noise_scale * noise).clamp(-1.0, 1.0)
+        zeros = np.zeros(act.shape[0], np.float32)
+        return self._rescale(act), zeros, zeros.copy()
+
+
+class SACPolicy(_ContinuousPolicy):
+    """Stochastic squashed-Gaussian policy for SAC rollouts: actions
+    tanh(N(mean, std)) rescaled to the Box bounds with the logp of the
+    squashed sample, or tanh(mean) with zeros when ``explore=False``;
+    the value column is zeros (SAC's critics live on the learner)."""
+
+    def __init__(self, observation_space, action_space,
+                 hidden=(256, 256), seed: int = 0, *, device=None):
+        super().__init__("SACPolicy", observation_space, action_space,
+                         M.SquashedGaussianActor, hidden, seed, device)
+
+    @torch.inference_mode()
+    def compute_actions(self, obs: np.ndarray, *, explore: bool = True
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        mean, log_std = self.model(torch.as_tensor(
+            np.asarray(obs, np.float32), device=self.device))
+        if explore:
+            act, logp = M.squashed_sample_logp(self._gen, mean, log_std)
+            logp = logp.cpu().numpy()
+        else:
+            act = torch.tanh(mean)
+            logp = np.zeros(act.shape[0], np.float32)
+        return (self._rescale(act), logp,
+                np.zeros(act.shape[0], np.float32))

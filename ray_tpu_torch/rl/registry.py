@@ -3,10 +3,10 @@ of ray_tpu/rl/registry.py).
 
 Analog of RLlib's rllib/algorithms/registry.py (get_algorithm_class) —
 the string lookup used by the CLI, Tune experiment specs, and tests.
-The port resolves the algorithms it has: PPO, IMPALA, APPO, DQN,
-SimpleQ, Ape-X, R2D2, BC, MARWIL and DT.  Every other name of the JAX
-package's registry raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+The port resolves the algorithms it has: PPO, IMPALA, APPO, PG, A2C,
+A3C, DQN, SimpleQ, Ape-X, R2D2, SAC, DDPG, TD3, BC, MARWIL, CQL, CRR and
+DT.  Every other name of the JAX package's registry raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -66,6 +66,46 @@ def _r2d2():
     return R2D2, R2D2Config
 
 
+def _pg():
+    from ray_tpu_torch.rl.pg import PG, PGConfig
+    return PG, PGConfig
+
+
+def _a2c():
+    from ray_tpu_torch.rl.a2c import A2C, A2CConfig
+    return A2C, A2CConfig
+
+
+def _a3c():
+    from ray_tpu_torch.rl.a2c import A3C, A3CConfig
+    return A3C, A3CConfig
+
+
+def _sac():
+    from ray_tpu_torch.rl.sac import SAC, SACConfig
+    return SAC, SACConfig
+
+
+def _ddpg():
+    from ray_tpu_torch.rl.ddpg import DDPG, DDPGConfig
+    return DDPG, DDPGConfig
+
+
+def _td3():
+    from ray_tpu_torch.rl.ddpg import TD3, TD3Config
+    return TD3, TD3Config
+
+
+def _cql():
+    from ray_tpu_torch.rl.cql import CQL, CQLConfig
+    return CQL, CQLConfig
+
+
+def _crr():
+    from ray_tpu_torch.rl.crr import CRR, CRRConfig
+    return CRR, CRRConfig
+
+
 def _bc():
     from ray_tpu_torch.rl.offline import BC, BCConfig
     return BC, BCConfig
@@ -85,20 +125,25 @@ _REGISTRY = {
     "ppo": _ppo,
     "impala": _impala,
     "appo": _appo,
+    "pg": _pg,
+    "a2c": _a2c,
+    "a3c": _a3c,
     "dqn": _dqn,
     "simpleq": _simple_q,
     "apexdqn": _apex_dqn,
     "r2d2": _r2d2,
+    "sac": _sac,
+    "ddpg": _ddpg,
+    "td3": _td3,
     "bc": _bc,
     "marwil": _marwil,
+    "cql": _cql,
+    "crr": _crr,
     "dt": _dt,
 }
 
 # the rest of the JAX package's registry, by the slice that ports it
 _SLICES = (
-    ("SAC and DDPG/TD3", ("sac", "ddpg", "td3")),
-    ("PG, A2C and A3C", ("pg", "a2c", "a3c")),
-    ("CQL and CRR", ("cql", "crr")),
     ("multi_agent, MADDPG and QMIX", ("maddpg", "qmix")),
     ("the model-based and search families",
      ("dreamer", "mbmpo", "maml", "alphazero", "alphastar", "slateq",

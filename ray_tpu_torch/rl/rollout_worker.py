@@ -22,7 +22,8 @@ from ray_tpu_torch.rl.policy import (DDPGPolicy, JaxPolicy, QPolicy,
                                      R2D2Policy, SACPolicy)
 from ray_tpu_torch.rl.sample_batch import SampleBatch, compute_gae
 
-_LATER = {"ddpg": DDPGPolicy, "sac": SACPolicy}
+# the policies by RolloutWorker's ``policy`` name ("ac" the default)
+_POLICIES = {"q": QPolicy, "ddpg": DDPGPolicy, "sac": SACPolicy}
 
 
 class RolloutWorker:
@@ -36,20 +37,17 @@ class RolloutWorker:
         self._env_spec = env_spec
         seed = (seed if seed is not None else 1234) + worker_index * 1000
         self.vec = VectorEnv(env_spec, num_envs, seed=seed)
-        if policy in _LATER:
-            _LATER[policy]()          # raises: not ported yet
         # batches of num_envs rows: one thread beats torch's pool of one
         # per core, and the actor leases one CPU
         torch.set_num_threads(1)
         spaces = (self.vec.observation_space, self.vec.action_space)
         kwargs = dict(hidden=hidden, seed=seed, device="cpu",
                       **(policy_kwargs or {}))
-        if policy == "q":
-            self.policy = QPolicy(*spaces, **kwargs)
-        elif policy == "r2d2":
+        if policy == "r2d2":
             self.policy = R2D2Policy(*spaces, num_envs=num_envs, **kwargs)
         else:
-            self.policy = JaxPolicy(*spaces, **kwargs)
+            self.policy = _POLICIES.get(policy, JaxPolicy)(*spaces,
+                                                           **kwargs)
         self.fragment = rollout_fragment_length
         self.gamma, self.lam = gamma, lam
         self._obs = self.vec.reset()

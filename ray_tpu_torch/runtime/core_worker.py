@@ -25,6 +25,7 @@ import itertools
 import threading
 import time
 import traceback
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -150,6 +151,15 @@ class ObjectRef:
                 f.set_exception(e)
         threading.Thread(target=_poll, daemon=True).start()
         return f
+
+
+def _views_dropped(worker_ref, oid, n: int) -> None:
+    """Finalizer of a fetched value's segment array: the last zero-copy
+    view is gone, so its ``n`` pins may go (``_drain_dead_views``)."""
+    worker = worker_ref()
+    if worker is not None:
+        worker._dead_views.append((oid, n))
+        worker._drain_dead_views()
 
 
 def _rebuild_ref(id_bytes: bytes, owner_addr) -> "ObjectRef":
@@ -549,6 +559,13 @@ class CoreWorker:
         self._borrowed_seq = itertools.count()
         self._pins: Dict[ObjectID, int] = {}   # local shm pins we hold
         self._pins_lock = threading.Lock()
+        # of those pins, the ones a fetched value's zero-copy arrays hold
+        # (_hold_views): released when the last array dies, never by the
+        # owner's free or a cache eviction, which would let the store
+        # reuse memory the arrays still read
+        self._view_pins: Dict[ObjectID, int] = {}
+        self._view_freed: set = set()   # freed by us while views lived
+        self._dead_views: deque = deque()   # (oid, pins) to release
         self._owner_conns = transfer.ConnCache()
         self._pull_budget = _PullBudget(CONFIG.pull_memory_cap_bytes)
         # bulk data plane (docs/object_transfer.md): pipelined multi-
@@ -625,7 +642,7 @@ class CoreWorker:
         # and the poll-time pin-count gauge (zero hot-path cost); both
         # are unhooked in shutdown() so this CoreWorker (and everything
         # its caches pin) stays collectable after ray_tpu_torch.shutdown()
-        self._pins_gauge_cb = lambda: sum(self._pins.values())
+        self._pins_gauge_cb = self._pin_count
         rtm.gauge_callback("ray_tpu_shm_pins",
                            "shared-memory pins held by this process",
                            self._pins_gauge_cb)
@@ -695,7 +712,8 @@ class CoreWorker:
             self.gcs.close()
         except Exception:
             pass
-        self.store.close()
+        with self._pins_lock:     # no view's pins are released after it
+            self.store.close()
 
     # ------------------------------------------------------- refcounting
     def _ref_created(self, oid: ObjectID) -> None:
@@ -741,7 +759,9 @@ class CoreWorker:
             # everything at session teardown anyway
             return
         for foid, locations in freed:
-            self._release_pins(foid)
+            # pins that live arrays hold stay, so the delete below is
+            # refused; the last array's death deletes (_drain_dead_views)
+            self._release_pins(foid, freed=True)
             # release the primary copies: local shm directly, remote nodes
             # (and any spilled files) via batched free_objects RPCs
             try:
@@ -776,6 +796,9 @@ class CoreWorker:
     def _free_loop(self) -> None:
         period = CONFIG.free_objects_period_ms / 1000.0
         while not self._shutdown.is_set():
+            # views whose finalizer met a held pin lock wait at most this
+            # loop's second for their release
+            self._drain_dead_views()
             with self._free_cv:
                 if not self._free_queue:
                     self._free_cv.wait(timeout=1.0)
@@ -808,15 +831,72 @@ class CoreWorker:
             self._pins[oid] = self._pins.get(oid, 0) + 1
         if pin_out is not None:
             pin_out.append(1)
+        self._drain_dead_views()
 
-    def _release_pins(self, oid: ObjectID) -> None:
+    def _release_pins(self, oid: ObjectID, freed: bool = False) -> None:
+        """Release our pins on ``oid`` but those that live zero-copy
+        arrays hold (``_hold_views``); ``freed``: the owner's free, so
+        the last array's death deletes the object."""
         with self._pins_lock:
             count = self._pins.pop(oid, 0)
-        for _ in range(count):
+            held = self._view_pins.get(oid, 0)
+            if held:
+                self._pins[oid] = held
+                if freed:
+                    self._view_freed.add(oid)
+        for _ in range(count - held):
             try:
                 self.store.release(oid)
             except Exception:
                 break
+        self._drain_dead_views()
+
+    def _pin_count(self) -> int:
+        """The ``ray_tpu_shm_pins`` gauge: the pins this process holds."""
+        self._drain_dead_views()
+        return sum(self._pins.values())
+
+    def _hold_views(self, oid: ObjectID, keeper, n: int) -> None:
+        """Make ``n`` pins that a fetch took on ``oid`` live as long as
+        ``keeper``, the array through which every zero-copy view of the
+        fetched value reaches the segment."""
+        with self._pins_lock:
+            self._view_pins[oid] = self._view_pins.get(oid, 0) + n
+        weakref.finalize(keeper, _views_dropped, weakref.ref(self), oid,
+                         n).atexit = False
+
+    def _drain_dead_views(self) -> None:
+        """Release the pins of values whose last view died
+        (``_views_dropped`` queues them), and delete those objects that
+        we freed meanwhile.  A finalizer may fire inside a section that
+        holds ``_pins_lock`` (a collection during an allocation), so this
+        never waits for the lock: whoever next releases it drains."""
+        if self._shutdown.is_set() or not self._dead_views:
+            return
+        if not self._pins_lock.acquire(blocking=False):
+            return
+        try:
+            # shutdown closes the store under this lock
+            while self._dead_views and not self._shutdown.is_set():
+                oid, n = self._dead_views.popleft()
+                held = self._view_pins.pop(oid, 0) - n
+                if held > 0:
+                    self._view_pins[oid] = held
+                count = self._pins.pop(oid, 0) - n
+                if count > 0:
+                    self._pins[oid] = count
+                delete = held <= 0 and oid in self._view_freed
+                if held <= 0:
+                    self._view_freed.discard(oid)
+                try:
+                    for _ in range(n):
+                        self.store.release(oid)
+                    if delete:
+                        self.store.delete(oid)
+                except Exception:
+                    pass
+        finally:
+            self._pins_lock.release()
 
     def _release_pins_n(self, oid: ObjectID, n: int) -> None:
         """Release exactly the ``n`` pins the caller itself took — a
@@ -836,6 +916,7 @@ class CoreWorker:
                 self.store.release(oid)
             except Exception:
                 break
+        self._drain_dead_views()
 
     def release_borrowed(self, oids) -> None:
         """Drop pins + cached values for borrowed objects (a worker calls
@@ -948,6 +1029,12 @@ class CoreWorker:
         data = self._fetch_serialized(ref, deadline, pins)
         if data is None:
             raise exc.GetTimeoutError(f"get timed out on {ref}")
+        if pins:
+            import numpy as np
+            # the segment seen through an array: every zero-copy view in
+            # the value reaches the segment through it, so it lives
+            # exactly as long as the last of them (_hold_views)
+            data = np.frombuffer(data, np.uint8)
         try:
             # raises stored task errors
             value, holds_views = ser.deserialize_with_viewinfo(data)
@@ -959,7 +1046,12 @@ class CoreWorker:
                 data = None
                 self._release_pins_n(oid, len(pins))
             raise
-        if pins and not holds_views:
+        if pins and holds_views:
+            # the pins outlive the owner's free and any cache eviction
+            # while the value's arrays live
+            self._hold_views(oid, data, len(pins))
+            data = None
+        elif pins:
             # self-contained value (no zero-copy views into the
             # segment): drop our pins now instead of carrying them until
             # cache eviction — a consumer draining a long generator

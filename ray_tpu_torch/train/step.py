@@ -114,12 +114,14 @@ def decay_all(params: Params) -> Dict[str, bool]:
 class AdamW:
     """``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1,
     b2, eps, weight_decay, mu_dtype, mask))`` over named parameters,
-    applied in place.  ``mask`` maps the parameters to which of them
-    decay: the LM rule ``_decay_mask`` by default, ``decay_all`` for an
-    unmasked ``optax.adamw``."""
+    applied in place; ``grad_clip=None`` leaves the clip out (a bare
+    ``optax.adam`` with no decay).  ``mask`` maps the parameters to
+    which of them decay: the LM rule ``_decay_mask`` by default,
+    ``decay_all`` for an unmasked ``optax.adamw``."""
 
     def __init__(self, schedule: Callable[[int], float], *, b1: float,
-                 b2: float, weight_decay: float, grad_clip: float,
+                 b2: float, weight_decay: float,
+                 grad_clip: Optional[float],
                  eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32,
                  mask: Callable[[Params], Dict[str, bool]] = _decay_mask):
         self.schedule = schedule
@@ -140,7 +142,8 @@ class AdamW:
                state: Dict[str, Any]) -> Dict[str, Any]:
         names = list(params)
         gs = [grads[n].float() for n in names]
-        gs = torch._foreach_mul(gs, _clip_scale(gs, self.grad_clip))
+        if self.grad_clip is not None:
+            gs = torch._foreach_mul(gs, _clip_scale(gs, self.grad_clip))
         b1, b2 = self.b1, self.b2
         # optax multiplies the moment by a weakly typed b1, which takes
         # the moment's dtype (0.8984375 for bf16); the jitted product

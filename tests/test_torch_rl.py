@@ -592,8 +592,11 @@ def test_registry_and_unported_paths():
         get_algorithm_class(name)
     for name in ("appo", "dqn", "simpleq", "apexdqn", "r2d2"):
         get_algorithm_class(name)
-    for name, slice_ in (("SAC", "DDPG"), ("a3c", "A2C"), ("crr", "CQL"),
-                         ("qmix", "MADDPG"), ("alpha_zero", "search")):
+    for name, cls in (("SAC", "SAC"), ("a3c", "A3C"), ("crr", "CRR")):
+        assert get_algorithm_class(name).__name__ == cls
+    for name, slice_ in (("maddpg", "MADDPG"), ("qmix", "MADDPG"),
+                         ("dreamer", "model-based"),
+                         ("alpha_zero", "search")):
         with pytest.raises(NotImplementedError, match=slice_):
             get_algorithm_class(name)
     with pytest.raises(ValueError, match="unknown"):

@@ -471,8 +471,9 @@ def test_podracer_weights_codec_matches_jax(quantize):
 # -------------------------------------------------------------- registry
 
 def test_registry_resolves_the_replay_family():
-    """The slice's names resolve to their classes; later slices still
-    raise, naming their slice; ``.podracer()`` raises where JAX's
+    """The slice's names resolve to their classes, as do the continuous
+    and actor-critic families ported since; later slices still raise,
+    naming their slice; ``.podracer()`` raises where JAX's
     does (DQN, SimpleQ, Ape-X, R2D2) and for APPO, whose JAX class would
     train IMPALA's loss on the executor."""
     for name, cls in (("APPO", "APPO"), ("dqn", "DQN"),
@@ -481,8 +482,11 @@ def test_registry_resolves_the_replay_family():
         algo, cfg = get_algorithm_class(name, return_config=True)
         assert (algo.__name__, cfg.__name__) == (cls, cls + "Config")
         assert cfg().algo_class is algo
-    for name, slice_ in (("sac", "SAC and DDPG"), ("td3", "DDPG/TD3"),
-                         ("a2c", "A2C"), ("cql", "CQL"), ("es", "search")):
+    for name, cls in (("sac", "SAC"), ("td3", "TD3"), ("a2c", "A2C"),
+                      ("cql", "CQL")):
+        assert get_algorithm_class(name).__name__ == cls
+    for name, slice_ in (("maddpg", "multi_agent"), ("qmix", "QMIX"),
+                         ("dreamer", "model-based"), ("es", "search")):
         with pytest.raises(NotImplementedError, match=slice_):
             get_algorithm_class(name)
     for cfg in (DQNConfig(), SimpleQConfig(), ApexDQNConfig(),

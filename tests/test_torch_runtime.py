@@ -270,6 +270,56 @@ def test_64mb_tensor_through_shm(cluster):
     assert total == pytest.approx(float(t.double().sum()), rel=1e-9)
 
 
+def _pins_gauge() -> float:
+    """The driver's ``ray_tpu_shm_pins`` gauge as a snapshot reads it."""
+    from ray_tpu_torch._private import runtime_metrics as rtm
+    return rtm.snapshot()["ray_tpu_shm_pins"]["values"]["{}"]
+
+
+def test_a_fetched_array_outlives_its_ref(cluster):
+    """A ``get`` result's arrays are zero-copy views of the store's
+    segment.  Dropping the ObjectRef frees the object at its owner; the
+    memory must not go to the next ``put``s of the same size while the
+    arrays still read it."""
+    want = np.arange(4 << 20, dtype=np.float32)       # 16 MiB
+    ref = ray_tpu_torch.put(want.copy())
+    got = ray_tpu_torch.get(ref, timeout=TIMEOUT)
+    store = core_worker.get_global_worker().store
+    assert store._base <= got.ctypes.data < store._base + len(store._mm)
+    del ref
+    more = [ray_tpu_torch.put(np.full_like(want, -1.0)) for _ in range(4)]
+    np.testing.assert_array_equal(got, want)
+    assert len(more) == 4
+
+
+def test_pins_go_with_the_last_view(cluster):
+    """The pins a ``get`` takes stay while its value's arrays live, after
+    the ref is gone too; once the arrays are dropped the pin gauge is
+    back at its level before the ``get`` and the object has left the
+    store.  A value without views (a pickled dict) keeps no pin."""
+    import gc
+    worker = core_worker.get_global_worker()
+    level = _pins_gauge()
+    ref = ray_tpu_torch.put({"a": np.ones(1 << 20, np.float32),
+                             "t": torch.zeros(1 << 18)})
+    oid = ref.id
+    value = ray_tpu_torch.get(ref, timeout=TIMEOUT)
+    assert _pins_gauge() == level + 1
+    del ref
+    assert _pins_gauge() == level + 1 and worker.store.contains(oid)
+    t = value["t"]
+    del value
+    gc.collect()
+    assert _pins_gauge() == level + 1        # the tensor is a view too
+    del t
+    gc.collect()
+    assert _pins_gauge() == level
+    assert not worker.store.contains(oid)
+    ref = ray_tpu_torch.put({"n": list(range(300_000))})
+    assert len(ray_tpu_torch.get(ref, timeout=TIMEOUT)["n"]) == 300_000
+    assert _pins_gauge() == level
+
+
 def test_actor_keeps_state(cluster):
     c = _Counter.remote(5)
     assert ray_tpu_torch.get(c.add.remote(1), timeout=TIMEOUT)[0] == 6
